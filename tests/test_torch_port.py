@@ -1,0 +1,40 @@
+"""The PyTorch port (``endoscopy_tpu_torch``) against the JAX package, on the CPU.
+
+The cases are the ``check_*`` functions of ``tests/torch_port_checks/``, one
+module for each part of the port: ``models`` (ResNet, heads, the flax →
+torch weight conversion), ``randaugment`` (the plain RandAugment and the
+kernel wrapper against the Pallas kernel in interpret mode), ``views``,
+``serve`` (the serving slice end to end over HTTP) and ``nojax`` (the import
+and device rules). This one test runs every case and reports every failure
+with its traceback. It is one test item so that the counts of the JAX
+suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
+within 2, stay the JAX suite's.
+"""
+
+import traceback
+
+import torch
+
+from torch_port_checks import models, nojax, randaugment, serve, views
+
+MODULES = (models, randaugment, views, serve, nojax)
+
+
+def _cases():
+    return [(f"{mod.__name__}.{name}", fn) for mod in MODULES
+            for name, fn in vars(mod).items() if name.startswith("check_")]
+
+
+def test_port_matches_jax_on_cpu():
+    torch.set_num_threads(1)
+    cases = _cases()
+    assert {mod.__name__ for mod in MODULES} == {
+        name.rsplit(".", 1)[0] for name, _ in cases}  # each module has cases
+    failures = []
+    for name, fn in cases:
+        try:
+            fn()
+        except Exception:
+            failures.append(f"{name}\n{traceback.format_exc()}")
+    assert not failures, (f"{len(failures)} of {len(cases)} port checks "
+                          "failed:\n" + "\n".join(failures))
