@@ -9,19 +9,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    limit as ``nvidia-smi`` reports them;
 2. builds the RandAugment kernel's extension (``endoscopy_tpu_torch/ops/
    csrc``) and prints the build, nvcc's register and shared-memory report
-   included;
+   included, then the launch's cluster size, shared memory per block,
+   registers and ``cudaOccupancyMaxActiveClusters``;
 3. holds the kernel against its plain PyTorch version on the card at 224 px,
-   in float32 and bf16 I/O, crop-fused and plain mode: every op forced into
-   slot 1 and fully sampled ``(pi, pf)``; and the crop-fused launch against
-   crop-then-launch. Tolerance 0, except images that ran sharpness
-   (0.51 in float32, the JAX package's own bar; 1.0 in bf16, one bf16 step
-   at 128..255) or contrast (1.0 in float32: a contrast mean that rounds
-   the other way at a near-tie moves a pixel by at most 1 - factor < 1;
-   2.0 in bf16);
+   in float32 and bf16 I/O, in plain mode, crop mode on a padded input
+   (``pad=0``) and crop mode with the reflect pad resolved in the load
+   (``pad=28``): every op forced into slot 1 and fully sampled ``(pi,
+   pf)``; the crop-fused launch against crop-then-launch and the
+   pad-fused launch against reflect-pad-then-launch, both exact.
+   Tolerance 0, except images that ran sharpness (0.51 in float32, the JAX
+   package's own bar; 1.0 in bf16, one bf16 step at 128..255) or contrast
+   (1.0 in float32: a contrast mean that rounds the other way at a near-tie
+   moves a pixel by at most 1 - factor < 1; 2.0 in bf16);
 4. path B: ``fixmatch_views`` on the flagship unlabeled batch, B*MU = 32*7
-   = 224 canonical 268 px uint8 images in bf16; checks the strong view
-   against the plain version on the same draws, and times the kernel with
-   CUDA events;
+   = 224 canonical 268 px uint8 images in bf16, with ``reflect_pad`` made
+   to fail (the card path must not pad); checks the strong view against
+   the plain version on the same draws, and times the kernel's launch as
+   ``fixmatch_views`` makes it with CUDA events, per op and per cluster
+   size;
 5. path A: exports ResNet-50 (``configs/kaggle_semisupervised_real_3.yaml``:
    224 px, 268 px canonical, 6 classes, bf16) with seeded random weights,
    serves it with ``make_server`` on a localhost port, sends 64 concurrent
@@ -122,7 +127,8 @@ def image_tolerances(pi, dtype_name: str):
 
 
 def phase_compare(gen):
-    """Kernel against plain version at 224 px; returns the max abs error."""
+    """Kernel against plain version at 224 px in the three modes; returns
+    the max abs error."""
     import torch
 
     from endoscopy_tpu_torch.aug import ops
@@ -139,17 +145,24 @@ def phase_compare(gen):
     forced[:, 3] = 1
     offs = torch.randint(0, 2 * PAD + 1, (BATCH, 2), generator=gen,
                          dtype=torch.int32)
+    offs[:2] = torch.tensor([[0, 2 * PAD], [2 * PAD, 0]])  # both mirrors
     pf = pf.cuda()
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         padded = base.to(dtype).cuda()
-        for mode in ("crop", "plain"):
-            crop = IMG if mode == "crop" else None
-            x = padded if crop else padded[:, PAD:PAD + IMG, PAD:PAD + IMG]
+        center = padded[:, PAD:PAD + IMG, PAD:PAD + IMG]
+        for mode in ("crop", "pad", "plain"):
+            # plain: a strided view (element loads); crop: the padded
+            # input, pad 0; pad: the contiguous un-padded image, as
+            # fixmatch_views hands it over (16-byte vector loads)
+            crop = None if mode == "plain" else IMG
+            pad = PAD if mode == "pad" else 0
+            x = {"crop": padded, "pad": center.contiguous(),
+                 "plain": center}[mode]
             for label, p in (("forced", forced), ("sampled", pi)):
                 p = (torch.cat([p, offs], 1) if crop else p).cuda()
-                got = randaugment_mc(x, p, pf, crop)
-                ref = randaugment_mc_plain(x, p, pf, crop)
+                got = randaugment_mc(x, p, pf, crop, pad)
+                ref = randaugment_mc_plain(x, p, pf, crop, pad)
                 torch.cuda.synchronize()
                 if got.shape != (BATCH, IMG, IMG, 3) or got.dtype != dtype:
                     fail(f"kernel output {got.dtype} {tuple(got.shape)}")
@@ -170,22 +183,30 @@ def phase_compare(gen):
                 if bad:
                     fail(f"{dname} {mode} {label}: images {bad[:8]} exceed "
                          f"their tolerance (errors {err[bad[:8]].tolist()})")
-            if crop:  # crop-fused launch == crop, then a plain-mode launch
-                p = torch.cat([pi, offs], 1).cuda()
+            p = torch.cat([pi, offs], 1).cuda()
+            if mode == "crop":  # crop-fused == crop, then a plain launch
                 fused = randaugment_mc(padded, p, pf, IMG)
                 cropped = ops.crop_at(padded, IMG, offs[:, 0], offs[:, 1])
                 unfused = randaugment_mc(cropped, pi.cuda(), pf)
-                torch.cuda.synchronize()
-                e = float((fused.float() - unfused.float()).abs().max())
-                print(f"crop-fused-vs-crop-then-kernel {dname} "
-                      f"max_abs_err={e} tol=0.0", flush=True)
-                if e != 0.0:
-                    fail(f"crop-fused launch differs from crop-then-launch ({e})")
+                what = "crop-fused-vs-crop-then-kernel"
+            elif mode == "pad":  # pad-fused == reflect pad, then pad 0
+                fused = randaugment_mc(x, p, pf, IMG, PAD)
+                unfused = randaugment_mc(ops.reflect_pad(x, PAD), p, pf, IMG)
+                what = "pad-fused-vs-reflect-pad-then-kernel"
+            else:
+                continue
+            torch.cuda.synchronize()
+            e = float((fused.float() - unfused.float()).abs().max())
+            print(f"{what} {dname} max_abs_err={e} tol=0.0", flush=True)
+            if e != 0.0:
+                fail(f"{what}: the launches differ ({e})")
     return worst
 
 
 def phase_views(gen, seed: int):
     """Path B: fixmatch_views on the flagship unlabeled batch."""
+    from unittest import mock
+
     import torch
 
     from endoscopy_tpu_torch.aug import ops
@@ -202,10 +223,14 @@ def phase_views(gen, seed: int):
     pi, pf = sample_randaugment_params(g, BATCH, IMG, IMG)
     draws = dict(flips=flips, tops=tops, lefts=lefts, pi=pi, pf=pf)
 
+    def no_pad(*_):
+        raise AssertionError("fixmatch_views made a reflect-padded batch")
+
     torch.cuda.synchronize()
     rk.randaugment_mc.launches = 0
     t0 = time.perf_counter()
-    weak, strong = fixmatch_views(u8, IMG, torch.bfloat16, **draws)
+    with mock.patch.object(ops, "reflect_pad", no_pad):
+        weak, strong = fixmatch_views(u8, IMG, torch.bfloat16, **draws)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = rk.randaugment_mc.launches
@@ -222,12 +247,13 @@ def phase_views(gen, seed: int):
     if not torch.equal(weak, eval_view(u8, IMG, torch.bfloat16)):
         fail("weak view differs from the eval view (center crop + normalize)")
 
-    # the same draws through the plain version
-    x = ops.center_crop(u8.to(torch.bfloat16), IMG)
+    # the same draws through the plain version; x is the kernel's input as
+    # fixmatch_views makes it: the flipped 224 px image, not padded
+    x = ops.center_crop(u8, IMG).to(torch.bfloat16)
     x = torch.where(flips.view(-1, 1, 1, 1), ops.hflip(x), x)
-    padded = ops.reflect_pad(x, PAD)
     pi_c = torch.cat([pi, tops[:, None], lefts[:, None]], 1)
-    ref = normalize(randaugment_mc_plain(padded, pi_c, pf, IMG), torch.bfloat16)
+    ref = normalize(randaugment_mc_plain(x, pi_c, pf, IMG, PAD),
+                    torch.bfloat16)
     err = (strong.float() - ref.float()).abs().amax(dim=(1, 2, 3)).cpu()
     # the pixel tolerances in normalized units (std >= 0.224), plus one
     # bf16 step of a normalized value (|v| < 4) where they are not 0
@@ -241,9 +267,9 @@ def phase_views(gen, seed: int):
 
     views_ms = cuda_ms(lambda: fixmatch_views(u8, IMG, torch.bfloat16,
                                               **draws), iters=10)
-    ms = cuda_ms(lambda: rk.randaugment_mc(padded, pi_c, pf, IMG), iters=50,
+    ms = cuda_ms(lambda: rk.randaugment_mc(x, pi_c, pf, IMG, PAD), iters=50,
                  warmup=3)
-    plain_ms = cuda_ms(lambda: randaugment_mc_plain(padded, pi_c, pf, IMG),
+    plain_ms = cuda_ms(lambda: randaugment_mc_plain(x, pi_c, pf, IMG, PAD),
                        iters=2, warmup=1)
     per_op = []
     for op in [None] + list(range(14)):  # None: no op applied
@@ -251,14 +277,22 @@ def phase_views(gen, seed: int):
         p[:, 3] = p[:, 5] = 0
         if op is not None:
             p[:, 2], p[:, 3] = op, 1
-        per_op.append(cuda_ms(lambda: rk.randaugment_mc(padded, p, pf, IMG),
+        per_op.append(cuda_ms(lambda: rk.randaugment_mc(x, p, pf, IMG, PAD),
                               iters=20))
     print("path B: randaugment_mc ms with every image running one op in "
           f"slot 1 (none, op0..op13): {[round(t, 4) for t in per_op]}",
           flush=True)
-    # the bytes the crop-fused kernel must move: each image's window read
-    # once, the output written once, and the (pi, pf) rows
-    window = BATCH * IMG * IMG * 3 * padded.element_size()
+    ext = rk.build()
+    for cluster in (4, 8):  # every cluster size that holds 224 px
+        info = ext.randaugment_mc_info(IMG, cluster, True)
+        t = cuda_ms(lambda: ext.randaugment_mc(x, pi_c, pf, IMG, True, PAD,
+                                               cluster), iters=50, warmup=3)
+        print(f"path B: randaugment_mc with a cluster of {cluster}: {t:.4f} "
+              f"ms ({info[1]} B shared memory per block, "
+              f"{info[2]} clusters resident)", flush=True)
+    # the bytes the kernel must move: each image's window read once, the
+    # output written once, and the (pi, pf) rows
+    window = BATCH * IMG * IMG * 3 * x.element_size()
     bytes_moved = 2 * window + pi_c.numel() * 4 + pf.numel() * 4
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     print(f"path B timing: fixmatch_views {views_ms:.4f} ms; randaugment_mc "
@@ -431,9 +465,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    rk.build(verbose=True)
+    ext = rk.build(verbose=True)
     print(f"built the RandAugment kernel in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    cluster, smem, active, regs, local = ext.randaugment_mc_info(IMG, 0, True)
+    print(f"randaugment_mc at {IMG} px: a cluster of {cluster} blocks per "
+          f"image, {smem} B dynamic shared memory per block, {regs} "
+          f"registers and {local} local bytes per thread, "
+          f"cudaOccupancyMaxActiveClusters {active}", flush=True)
 
     gen = torch.Generator().manual_seed(args.seed)
     max_err = phase_compare(gen)

@@ -213,14 +213,18 @@ def cutout(img: torch.Tensor, cx: int, cy: int) -> torch.Tensor:
 
 
 def randaugment_mc_plain(x: torch.Tensor, pi: torch.Tensor, pf: torch.Tensor,
-                         crop_size: int | None = None) -> torch.Tensor:
+                         crop_size: int | None = None, pad: int = 0
+                         ) -> torch.Tensor:
     """Batch RandAugmentMC + CutoutAbs over NHWC ``x`` with explicit
     per-sample parameters; returns NHWC in ``x``'s dtype.
 
     ``pi`` (B, 2+2n[+2]) int32: ``cx, cy, (op, apply)*n, [top, left]``;
     ``pf`` (B, 2n) float32: ``(v, sign)*n``. With ``crop_size`` each
-    sample's ``crop_size``² window at (top, left) is cut first.
+    sample's ``crop_size``² window at (top, left) of ``x`` reflect-padded by
+    ``pad`` is cut first.
     """
+    if pad:
+        x = ops.reflect_pad(x, pad)
     n = pf.shape[1] // 2
     pis, pfs = pi.tolist(), pf.tolist()
     outs = []

@@ -5,11 +5,11 @@ at IMG_SIZE in ``dtype``, on ``device`` (``cuda`` unless the caller asks
 for ``cpu``). Every random draw can be passed in; what is not passed comes
 from the caller's ``torch.Generator``.
 
-The strong view's RandomCrop is fused into the RandAugment kernel, as the
-JAX package's Pallas path does: the view emits the reflect-padded batch and
-the crop offsets, and the kernel cuts each window. On the card the strong
-view always runs the CUDA kernel; the plain version runs only for tensors
-on the CPU.
+The strong view's reflect-pad RandomCrop is fused into the RandAugment
+kernel: the view hands it the un-padded flipped image, the crop offsets and
+the padding, and the kernel reads each window through mirrored indices, so
+no padded batch is made. On the card the strong view always runs the CUDA
+kernel; the plain version runs only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -33,25 +33,23 @@ def normalize(img: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return ((img / 255.0 - mean) / std).to(dtype)
 
 
-def _to_float(batch_u8, dtype, device) -> torch.Tensor:
+def _center_float(batch_u8, img_size: int, dtype, device) -> torch.Tensor:
+    """The center crop of the uint8 batch on ``device``, cast to ``dtype``
+    (the crop first, so only the kept pixels are cast)."""
     x = torch.as_tensor(batch_u8)
     if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[3] != 3:
         raise ValueError(f"expected a uint8 (B, S, S, 3) batch, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    return x.to(resolve_device(device)).to(dtype)
-
-
-def _center(x: torch.Tensor, img_size: int) -> torch.Tensor:
-    if x.shape[1] == img_size:
-        return x
-    return ops.center_crop(x, img_size)
+    x = x.to(resolve_device(device))
+    if x.shape[1] != img_size:
+        x = ops.center_crop(x, img_size)
+    return x.to(dtype)
 
 
 def eval_view(batch_u8, img_size: int, dtype=torch.float32,
               device=None) -> torch.Tensor:
     """Deterministic center crop + normalize."""
-    x = _to_float(batch_u8, dtype, device)
-    return normalize(_center(x, img_size), dtype)
+    return normalize(_center_float(batch_u8, img_size, dtype, device), dtype)
 
 
 def fixmatch_views(batch_u8, img_size: int, dtype=torch.float32,
@@ -65,8 +63,8 @@ def fixmatch_views(batch_u8, img_size: int, dtype=torch.float32,
     [0, 2*padding] and ``pi``/``pf`` (see ``sample_randaugment_params``)
     override the generator's draws.
     """
-    x = _to_float(batch_u8, dtype, device)
-    b = x.shape[0]
+    weak = _center_float(batch_u8, img_size, dtype, device)
+    b = weak.shape[0]
     padding = int(img_size * 0.125)
     if (tops is None) != (lefts is None) or (pi is None) != (pf is None):
         raise ValueError("pass tops with lefts and pi with pf")
@@ -80,14 +78,13 @@ def fixmatch_views(batch_u8, img_size: int, dtype=torch.float32,
     if pi is None:
         pi, pf = sample_randaugment_params(generator, b, img_size, img_size)
 
-    weak = _center(x, img_size)
-    flips = torch.as_tensor(flips, device=x.device).view(b, 1, 1, 1)
+    dev = weak.device
+    flips = torch.as_tensor(flips, device=dev).view(b, 1, 1, 1)
     strong = torch.where(flips, ops.hflip(weak), weak)
-    padded = ops.reflect_pad(strong, padding)
-    tops = torch.as_tensor(tops, device=x.device).to(torch.int32)
-    lefts = torch.as_tensor(lefts, device=x.device).to(torch.int32)
-    pi = torch.cat([torch.as_tensor(pi, device=x.device).to(torch.int32),
+    tops = torch.as_tensor(tops, device=dev).to(torch.int32)
+    lefts = torch.as_tensor(lefts, device=dev).to(torch.int32)
+    pi = torch.cat([torch.as_tensor(pi, device=dev).to(torch.int32),
                     tops[:, None], lefts[:, None]], dim=1)
-    pf = torch.as_tensor(pf, device=x.device).to(torch.float32)
-    strong = randaugment_mc(padded, pi, pf, crop_size=img_size)
+    pf = torch.as_tensor(pf, device=dev).to(torch.float32)
+    strong = randaugment_mc(strong, pi, pf, crop_size=img_size, pad=padding)
     return normalize(weak, dtype), normalize(strong, dtype)

@@ -11,8 +11,14 @@ the plain PyTorch version (``aug/randaugment.py``); a CUDA tensor launches
 the kernel, or raises if it cannot be built or launched. Each launch adds
 one to ``randaugment_mc.launches``.
 
-The kernel is bound by the card's memory rate: it reads each input byte and
-writes each output byte once, with a few operations per pixel in between.
+The kernel is bound by the card's memory rate: each image's window is read
+once and the output written once, with a few operations per pixel in
+between. So each image's float32 state stays on chip: one thread-block
+cluster per image (2, 4 or 8 blocks, the smallest that fits), each block
+holding its share of the rows in shared memory and reading its peers'
+through distributed shared memory. That holds output sides up to
+:data:`MAX_SIDE` (328 px); larger ones raise. The reflect pad of the
+strong view's RandomCrop is resolved in the kernel's load (``pad``).
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # has, and nvcc must contract nothing else (see randaugment.cu)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-Xptxas=-v")
+# the largest output side the on-chip design holds (kRandaugmentMaxSide in
+# csrc/randaugment.h: clusters of 8 blocks of 227 KB shared memory each)
+MAX_SIDE = 328
 
 _ext = None
 
@@ -54,16 +63,25 @@ def build(verbose: bool = False):
 
 
 def _check(x: torch.Tensor, pi: torch.Tensor, pf: torch.Tensor,
-           crop_size: int | None) -> int:
+           crop_size: int | None, pad: int) -> int:
     """Validates the arguments; returns the output side."""
     if x.ndim != 4 or x.shape[3] != 3:
         raise ValueError(f"expected an NHWC batch with 3 channels, got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"expected float32 or bfloat16 input, got {x.dtype}")
-    b, hp, wp = x.shape[:3]
-    size = hp if crop_size is None else int(crop_size)
-    if hp != wp or not 0 < size <= hp:
-        raise ValueError(f"square images and 0 < crop_size <= {hp} only")
+    b, hs, ws = x.shape[:3]
+    if hs != ws:
+        raise ValueError(f"square images only, got {hs} x {ws}")
+    if pad and crop_size is None:
+        raise ValueError("pad needs crop_size")
+    if not 0 <= pad < hs:
+        raise ValueError(f"need 0 <= pad < {hs}, got {pad}")
+    size = hs if crop_size is None else int(crop_size)
+    if not 0 < size <= hs + 2 * pad:
+        raise ValueError(f"need 0 < crop_size <= {hs} + 2 * pad, got {size}")
+    if size > MAX_SIDE:
+        raise ValueError(f"output side {size} is above {MAX_SIDE}, the largest "
+                         "the kernel holds on chip")
     n = pf.shape[1] // 2 if pf.ndim == 2 else -1
     cols = 2 + 2 * n + (2 if crop_size is not None else 0)
     if pf.shape != (b, 2 * n) or n < 1 or pf.dtype != torch.float32:
@@ -74,19 +92,21 @@ def _check(x: torch.Tensor, pi: torch.Tensor, pf: torch.Tensor,
 
 
 def randaugment_mc(x: torch.Tensor, pi: torch.Tensor, pf: torch.Tensor,
-                   crop_size: int | None = None) -> torch.Tensor:
+                   crop_size: int | None = None, pad: int = 0) -> torch.Tensor:
     """Batch RandAugmentMC + CutoutAbs(16) with explicit per-sample params.
 
-    ``x`` (B, Hp, Wp, 3) float32 or bf16 in [0, 255], any strides. ``pi``
+    ``x`` (B, S, S, 3) float32 or bf16 in [0, 255], any strides. ``pi``
     (B, 2+2n[+2]) int32 ``cx, cy, (op, apply)*n, [top, left]`` and ``pf``
     (B, 2n) float32 ``(v, sign)*n``, as ``aug.randaugment.
-    sample_randaugment_params`` draws them. With ``crop_size`` the input is
-    the reflect-padded batch and each sample's window at (top, left) is cut
-    inside the kernel. Returns a contiguous (B, H, W, 3) in ``x``'s dtype.
+    sample_randaugment_params`` draws them. With ``crop_size`` each sample's
+    window at (top, left) is cut inside the kernel, in the frame of ``x``
+    reflect-padded by ``pad`` (``0 <= pad < S``, ``crop_size <= S + 2 pad``);
+    no padded batch is made. Returns a contiguous (B, crop_size, crop_size,
+    3) in ``x``'s dtype.
     """
-    size = _check(x, pi, pf, crop_size)
+    size = _check(x, pi, pf, crop_size, pad)
     if x.device.type == "cpu":
-        return randaugment_mc_plain(x, pi, pf, crop_size)
+        return randaugment_mc_plain(x, pi, pf, crop_size, pad)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b = x.shape[0]
@@ -94,7 +114,7 @@ def randaugment_mc(x: torch.Tensor, pi: torch.Tensor, pf: torch.Tensor,
         return torch.empty((0, size, size, 3), dtype=x.dtype, device=x.device)
     out = build().randaugment_mc(x, pi.to(x.device).contiguous(),
                                  pf.to(x.device).contiguous(), size,
-                                 crop_size is not None)
+                                 crop_size is not None, pad)
     randaugment_mc.launches += 1
     return out
 

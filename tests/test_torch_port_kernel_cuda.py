@@ -11,44 +11,91 @@ without the JAX package's test configuration:
 import pytest
 import torch
 
+from endoscopy_tpu_torch.aug import ops
 from endoscopy_tpu_torch.aug import randaugment as tra
 from endoscopy_tpu_torch.ops import randaugment_kernel as tk
 
 torch.set_num_threads(1)
 
+# 37: rows that do not split evenly over the cluster's blocks
+SIDES = (32, 37, 112, 224)
+
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """Every op forced into slot 1 (twice), crop-fused and plain mode, f32
-    and bf16 I/O; and a strided input: the same pixels as the plain
-    version, one launch counted per call."""
+    """Every op forced into slot 1 (sampled magnitude, then v = 9 with both
+    signs, then after color), at every configured side and an odd one, f32
+    and bf16 I/O, in plain mode, crop mode with pad = 0 and crop mode with
+    pad > 0: the same pixels as the plain version, one launch counted per
+    call. Then every cluster size the side allows, a strided input, and a
+    side above the kernel's limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernel has no CPU mode")
     tk.build()
-    for crop in (None, 64):
+    for side in SIDES:
         for dtype in (torch.float32, torch.bfloat16):
-            _forced_ops_match_plain(crop, dtype)
+            for mode in ("plain", "crop", "pad"):
+                _forced_ops_match_plain(side, mode, dtype)
+    _every_cluster_size_gives_the_same_pixels()
     _strided_input_is_read_through_its_strides()
+    _side_above_the_limit_raises()
 
 
-def _forced_ops_match_plain(crop, dtype):
-    gen = torch.Generator().manual_seed(0)
-    b, size, pad = 2 * tra.NUM_OPS, 64, 8
-    side = size + 2 * pad if crop else size
-    x = torch.randint(0, 256, (b, side, side, 3), generator=gen).to(dtype)
-    pi, pf = tra.sample_randaugment_params(gen, b, size, size)
-    pi[:, 2] = torch.arange(b) % tra.NUM_OPS
-    pi[:, 3] = 1
+def _forced_case(side, mode, dtype, seed=0):
+    """(x, pi, pf, crop_size, pad): 3 x 14 images. Image i < 14 runs op i in
+    slot 1; 14 <= i < 28 runs op i - 14 at v = 9, the sign alternating (the
+    geometric shifts are then the largest and cross the blocks' row split);
+    i >= 28 runs color, then op i - 28 on its non-integer pixels. Sharpness
+    reads every row, so it crosses every block boundary."""
+    gen = torch.Generator().manual_seed(seed)
+    n = tra.NUM_OPS
+    b, pad = 3 * n, side // 8
+    pi, pf = tra.sample_randaugment_params(gen, b, side, side)
+    ops_ = torch.arange(n)
+    pi[:2 * n, 2] = torch.cat([ops_, ops_])
+    pi[:2 * n, 3] = 1
+    pf[n:2 * n, 0] = 9.0
+    pf[n:2 * n, 1] = torch.where(ops_ % 2 == 0, 1.0, -1.0)
+    pi[2 * n:, 2:6] = torch.stack(
+        [torch.full((n,), tra.OP_COLOR), torch.ones(n, dtype=torch.long),
+         ops_, torch.ones(n, dtype=torch.long)], 1).to(torch.int32)
+    in_side = side + 2 * pad if mode == "crop" else side
+    x = torch.randint(0, 256, (b, in_side, in_side, 3), generator=gen).to(dtype)
+    crop = None if mode == "plain" else side
     if crop:
         offs = torch.randint(0, 2 * pad + 1, (b, 2), generator=gen)
+        offs[:2] = torch.tensor([[0, 2 * pad], [2 * pad, 0]])
         pi = torch.cat([pi, offs.to(torch.int32)], dim=1)
-    x, pi, pf = x.cuda(), pi.cuda(), pf.cuda()
+    return x.cuda(), pi.cuda(), pf.cuda(), crop, pad if mode == "pad" else 0
+
+
+def _forced_ops_match_plain(side, mode, dtype):
+    x, pi, pf, crop, pad = _forced_case(side, mode, dtype)
     before = tk.randaugment_mc.launches
-    got = tk.randaugment_mc(x, pi, pf, crop)
+    got = tk.randaugment_mc(x, pi, pf, crop, pad)
     torch.cuda.synchronize()
     assert tk.randaugment_mc.launches == before + 1
-    assert torch.equal(got, tra.randaugment_mc_plain(x, pi, pf, crop)), (
-        f"crop={crop} dtype={dtype}")
+    assert got.shape == (x.shape[0], side, side, 3) and got.dtype == dtype
+    ref = tra.randaugment_mc_plain(x, pi, pf, crop, pad)
+    bad = (got != ref).flatten(1).any(1).nonzero().flatten().tolist()
+    assert not bad, f"side={side} mode={mode} dtype={dtype}: images {bad}"
+    if pad:  # the pad resolved in the load == reflect_pad, then pad = 0
+        assert torch.equal(got, tk.randaugment_mc(ops.reflect_pad(x, pad),
+                                                  pi, pf, crop))
+
+
+def _every_cluster_size_gives_the_same_pixels():
+    """The cluster size only splits the rows: each size the side allows
+    (through the binding's override) gives the default launch's pixels."""
+    ext = tk.build()
+    for side in (37, 224):
+        x, pi, pf, crop, pad = _forced_case(side, "pad", torch.bfloat16, seed=1)
+        want = tk.randaugment_mc(x, pi, pf, crop, pad)
+        for cluster in (2, 4, 8):
+            if ext.randaugment_mc_info(side, 0)[0] > cluster:
+                continue  # this cluster's blocks cannot hold the side
+            got = ext.randaugment_mc(x, pi, pf, side, True, pad, cluster)
+            assert torch.equal(got, want), (side, cluster)
 
 
 def _strided_input_is_read_through_its_strides():
@@ -61,3 +108,22 @@ def _strided_input_is_read_through_its_strides():
     got = tk.randaugment_mc(x, pi, pf)
     assert torch.equal(got, tk.randaugment_mc(x.contiguous(), pi, pf))
     assert torch.equal(got, tra.randaugment_mc_plain(x, pi, pf))
+    ch = big.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)  # planar
+    assert torch.equal(tk.randaugment_mc(ch, pi, pf),
+                       tk.randaugment_mc(big, pi, pf))
+    pi_c = torch.cat([pi, torch.full((4, 2), 3, dtype=torch.int32,
+                                     device="cuda")], 1)
+    assert torch.equal(tk.randaugment_mc(x, pi_c, pf, 32, pad=4),
+                       tk.randaugment_mc(x.contiguous(), pi_c, pf, 32, pad=4))
+
+
+def _side_above_the_limit_raises():
+    side = tk.MAX_SIDE + 1
+    x = torch.zeros(1, side, side, 3, device="cuda")
+    pi = torch.zeros(1, 6, dtype=torch.int32, device="cuda")
+    pf = torch.ones(1, 4, device="cuda")
+    with pytest.raises(ValueError, match=str(tk.MAX_SIDE)):
+        tk.randaugment_mc(x, pi, pf)
+    with pytest.raises(RuntimeError, match=str(tk.MAX_SIDE)):
+        tk.build().randaugment_mc(x, pi, pf, side, False)
+    assert tk.build().MAX_SIDE == tk.MAX_SIDE

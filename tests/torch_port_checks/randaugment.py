@@ -20,6 +20,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from endoscopy_tpu.ops import randaugment_kernel as rk
+from endoscopy_tpu_torch.aug import ops as tops_
 from endoscopy_tpu_torch.aug import randaugment as tra
 from endoscopy_tpu_torch.ops import randaugment_kernel as tk
 
@@ -186,6 +187,66 @@ def _wrapper_rejects(bad):
         x = x.to(torch.uint8)
     with pytest.raises(ValueError):
         tk.randaugment_mc(x, pi, pf, crop_size=crop)
+
+
+def _pad_fused_case(side, pad, seed):
+    """Images of ``side`` px, offsets in the frame padded by ``pad`` (both
+    extremes included), and the Pallas crop-fused launch on the
+    ``jnp.pad(mode="reflect")`` batch (one interpret call)."""
+    rng = np.random.default_rng(seed)
+    b = 8
+    imgs = rng.integers(0, 256, (b, side, side, 3)).astype(np.float32)
+    offs = rng.integers(0, 2 * pad + 1, (b, 2)).astype(np.int32)
+    offs[:2] = [[0, 2 * pad], [2 * pad, 0]]
+    key = jax.random.key(seed)
+    padded = jnp.pad(jnp.asarray(imgs), ((0, 0), (pad, pad), (pad, pad), (0, 0)),
+                     mode="reflect")
+    ref = np.asarray(rk.randaugment_mc_pallas(
+        padded, key, interpret=True,
+        crop_offsets=(jnp.asarray(offs[:, 0]), jnp.asarray(offs[:, 1])),
+        crop_size=side))
+    pi, pf = map(np.array, rk.sample_randaugment_params(key, b, side, side))
+    pi = np.concatenate([pi, offs], axis=1)
+    return imgs, pi, pf, ref
+
+
+def check_pad_fused_matches_reflect_pad_and_pallas():
+    """``pad > 0``: the plain version (the CPU wrapper) equals itself on
+    ``reflect_pad(x, pad)`` with ``pad = 0`` exactly, and the Pallas kernel
+    on the ``jnp.pad`` batch (exact but sharpness); in f32 and bf16 I/O, at
+    an even and an odd side. The bf16 reference is the f32 one rounded to
+    bf16, which the Pallas bf16 launch gives for integer pixels (its
+    docstring)."""
+    for side, pad, seed in ((32, 4, 21), (37, 4, 22)):
+        imgs, pi, pf, ref = _pad_fused_case(side, pad, seed)
+        pi_t, pf_t = torch.from_numpy(pi), torch.from_numpy(pf)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(imgs).to(dtype)
+            got = tk.randaugment_mc(x, pi_t, pf_t, crop_size=side, pad=pad)
+            assert got.dtype == dtype and got.shape == (8, side, side, 3)
+            unfused = tk.randaugment_mc(tops_.reflect_pad(x, pad), pi_t, pf_t,
+                                        crop_size=side)
+            assert torch.equal(got, unfused), (side, dtype)
+            want = torch.from_numpy(np.array(ref)).to(dtype).float().numpy()
+            _assert_match(got.float().numpy(), want, pi)
+
+
+def check_wrapper_rejects_bad_pad():
+    """``pad`` needs ``crop_size`` and ``0 <= pad < S``; the window fits in
+    ``S + 2 pad``; no output side above the kernel's limit."""
+    x = torch.zeros(2, S, S, 3)
+    pi = torch.zeros(2, 8, dtype=torch.int32)
+    pf = torch.ones(2, 4)
+    for crop, pad, match in ((None, 2, "crop_size"), (S, S, "pad"),
+                             (S, -1, "pad"), (S + 9, 4, "crop_size")):
+        with pytest.raises(ValueError, match=match):
+            tk.randaugment_mc(x, pi if crop else pi[:, :6], pf,
+                              crop_size=crop, pad=pad)
+    big = tk.MAX_SIDE + 1
+    with pytest.raises(ValueError, match=str(tk.MAX_SIDE)):
+        tk.randaugment_mc(torch.zeros(1, big, big, 3), pi[:1, :6], pf[:1])
+    out = tk.randaugment_mc(x, pi, pf, crop_size=S + 8, pad=4)  # S + 2 pad fits
+    assert out.shape == (2, S + 8, S + 8, 3)
 
 
 def check_param_sampling_distribution():
