@@ -25,8 +25,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    = 224 canonical 268 px uint8 images in bf16, with ``reflect_pad`` made
    to fail (the card path must not pad); checks the strong view against
    the plain version on the same draws, and times the kernel's launch as
-   ``fixmatch_views`` makes it with CUDA events, per op and per cluster
-   size;
+   ``fixmatch_views`` makes it with CUDA events, and per op;
 5. path A: exports ResNet-50 (``configs/kaggle_semisupervised_real_3.yaml``:
    224 px, 268 px canonical, 6 classes, bf16) with seeded random weights,
    serves it with ``make_server`` on a localhost port, sends 64 concurrent
@@ -282,14 +281,6 @@ def phase_views(gen, seed: int):
     print("path B: randaugment_mc ms with every image running one op in "
           f"slot 1 (none, op0..op13): {[round(t, 4) for t in per_op]}",
           flush=True)
-    ext = rk.build()
-    for cluster in (4, 8):  # every cluster size that holds 224 px
-        info = ext.randaugment_mc_info(IMG, cluster, True)
-        t = cuda_ms(lambda: ext.randaugment_mc(x, pi_c, pf, IMG, True, PAD,
-                                               cluster), iters=50, warmup=3)
-        print(f"path B: randaugment_mc with a cluster of {cluster}: {t:.4f} "
-              f"ms ({info[1]} B shared memory per block, "
-              f"{info[2]} clusters resident)", flush=True)
     # the bytes the kernel must move: each image's window read once, the
     # output written once, and the (pi, pf) rows
     window = BATCH * IMG * IMG * 3 * x.element_size()
@@ -468,7 +459,7 @@ def main(argv=None) -> int:
     ext = rk.build(verbose=True)
     print(f"built the RandAugment kernel in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    cluster, smem, active, regs, local = ext.randaugment_mc_info(IMG, 0, True)
+    cluster, smem, active, regs, local = ext.randaugment_mc_info(IMG, True)
     print(f"randaugment_mc at {IMG} px: a cluster of {cluster} blocks per "
           f"image, {smem} B dynamic shared memory per block, {regs} "
           f"registers and {local} local bytes per thread, "

@@ -28,24 +28,17 @@ __attribute__((format(printf, 2, 3))) void check(bool ok, const char* fmt, ...) 
   TORCH_CHECK(false, text);
 }
 
-// The cluster size to launch with: `cluster`, or the default for `side` when
-// it is 0; raises if that cluster cannot hold the side.
-int checked_cluster(int64_t side, int64_t cluster) {
+// Raises unless the on-chip design holds an output side of `side`.
+void check_side(int64_t side) {
   check(0 < side && side <= kRandaugmentMaxSide,
         "randaugment_mc: the output side must be in [1, %d] (the "
         "largest the on-chip design holds), got %lld",
         kRandaugmentMaxSide, (long long)side);
-  const int c = cluster == 0 ? randaugment_cluster_size((int)side) : (int)cluster;
-  check((c == 2 || c == 4 || c == 8) &&
-            randaugment_smem_bytes((int)side, c) <= kRandaugmentSmemLimit,
-        "randaugment_mc: a cluster of %d blocks cannot hold side %lld", c,
-        (long long)side);
-  return c;
 }
 
 torch::Tensor randaugment_mc(const torch::Tensor& x, const torch::Tensor& pi,
                              const torch::Tensor& pf, int64_t size, bool crop,
-                             int64_t pad, int64_t cluster) {
+                             int64_t pad) {
   check(x.is_cuda() && pi.device() == x.device() &&
             pf.device() == x.device(),
         "randaugment_mc: x, pi and pf must be on one CUDA device");
@@ -71,7 +64,7 @@ torch::Tensor randaugment_mc(const torch::Tensor& x, const torch::Tensor& pi,
   check(0 < size && size <= std::min(hs, ws) + 2 * pad &&
             (crop || (size == hs && size == ws)),
         "randaugment_mc: bad image or crop size %lld", (long long)size);
-  const int c = checked_cluster(size, cluster);
+  check_side(size);
 
   const c10::cuda::CUDAGuard guard(x.device());
   auto out = torch::empty({b, size, size, 3}, x.options());
@@ -79,7 +72,7 @@ torch::Tensor randaugment_mc(const torch::Tensor& x, const torch::Tensor& pi,
   const cudaError_t rc = randaugment_mc_launch(
       x.data_ptr(), out.data_ptr(), pi.data_ptr<int>(), pf.data_ptr<float>(),
       x.scalar_type() == at::kBFloat16, b, size, hs, ws, pad, n, pi.size(1),
-      crop, x.stride(0), x.stride(1), x.stride(2), x.stride(3), c,
+      crop, x.stride(0), x.stride(1), x.stride(2), x.stride(3),
       at::cuda::getCurrentCUDAStream());
   check(rc == cudaSuccess, "randaugment_mc launch failed: %s", cudaGetErrorString(rc));
   return out;
@@ -88,10 +81,11 @@ torch::Tensor randaugment_mc(const torch::Tensor& x, const torch::Tensor& pi,
 // (cluster, shared bytes per block, max active clusters, registers per
 // thread, local bytes per thread) of a launch at `side` on the current card.
 std::tuple<int64_t, int64_t, int64_t, int64_t, int64_t> randaugment_mc_info(
-    int64_t side, int64_t cluster, bool bf16) {
-  const int c = checked_cluster(side, cluster);
+    int64_t side, bool bf16) {
+  check_side(side);
+  const int c = randaugment_cluster_size((int)side);
   int active = 0, regs = 0, local = 0;
-  const cudaError_t rc = randaugment_mc_occupancy(bf16, (int)side, c, &active,
+  const cudaError_t rc = randaugment_mc_occupancy(bf16, (int)side, &active,
                                                   &regs, &local);
   check(rc == cudaSuccess, "randaugment_mc occupancy query failed: %s",
         cudaGetErrorString(rc));
@@ -104,10 +98,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("randaugment_mc", &randaugment_mc,
         "RandAugmentMC + CutoutAbs(16) on a (B, H, W, 3) CUDA batch",
         py::arg("x"), py::arg("pi"), py::arg("pf"), py::arg("size"),
-        py::arg("crop"), py::arg("pad") = 0, py::arg("cluster") = 0);
+        py::arg("crop"), py::arg("pad") = 0);
   m.def("randaugment_mc_info", &randaugment_mc_info,
         "cluster, shared bytes, max active clusters, registers and local "
         "bytes of a launch at this side",
-        py::arg("side"), py::arg("cluster") = 0, py::arg("bf16") = true);
+        py::arg("side"), py::arg("bf16") = true);
   m.attr("MAX_SIDE") = kRandaugmentMaxSide;
 }

@@ -701,9 +701,12 @@ randaugment_kernel(const T* __restrict__ in, T* __restrict__ out,
   cluster.sync();
 }
 
+// The launch at `side`: one cluster of randaugment_cluster_size(side) blocks
+// per image, each with its rows' dynamic shared memory.
 template <typename T>
-cudaLaunchConfig_t launch_config(int batch, int side, int cluster,
-                                 cudaStream_t stream, cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t launch_config(int batch, int side, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  const int cluster = randaugment_cluster_size(side);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(batch * cluster), 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -718,25 +721,24 @@ cudaLaunchConfig_t launch_config(int batch, int side, int cluster,
   return cfg;
 }
 
-bool valid_cluster(int side, int cluster) {
-  const int rows = (side + cluster - 1) / cluster;
-  return (cluster == 2 || cluster == 4 || cluster == 8) && side >= 1 &&
-         side <= kRandaugmentMaxSide &&
-         randaugment_smem_bytes(side, cluster) <= kRandaugmentSmemLimit &&
-         rows * side <= kPerThread * kThreads;
+bool valid_side(int side) {
+  if (side < 1 || side > kRandaugmentMaxSide) return false;
+  const int c = randaugment_cluster_size(side);
+  return c != 0 && (side + c - 1) / c * side <= kPerThread * kThreads;
 }
 
 template <typename T>
 cudaError_t launch(const void* in, void* out, const int* pi, const float* pf,
                    int batch, int side, int hs, int ws, int pad, int n_slots,
                    int pi_cols, bool crop, int64_t sb, int64_t sy, int64_t sx,
-                   int64_t sc, int cluster, cudaStream_t stream) {
-  const size_t smem = randaugment_smem_bytes(side, cluster);
-  cudaError_t rc = cudaFuncSetAttribute(
-      randaugment_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc != cudaSuccess) return rc;
+                   int64_t sc, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config<T>(batch, side, cluster, stream, attr);
+  const cudaLaunchConfig_t cfg = launch_config<T>(batch, side, stream, attr);
+  const int cluster = (int)attr[0].val.clusterDim.x;
+  cudaError_t rc = cudaFuncSetAttribute(
+      randaugment_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cfg.dynamicSmemBytes);
+  if (rc != cudaSuccess) return rc;
   rc = cudaLaunchKernelEx(&cfg, randaugment_kernel<T>, (const T*)in, (T*)out, pi,
                           pf, side, (side + cluster - 1) / cluster, hs, ws, pad,
                           n_slots, pi_cols, (int)crop, (long long)sb,
@@ -746,19 +748,19 @@ cudaError_t launch(const void* in, void* out, const int* pi, const float* pf,
 }
 
 template <typename T>
-cudaError_t occupancy(int side, int cluster, int* max_active_clusters,
-                      int* regs, int* local_bytes) {
+cudaError_t occupancy(int side, int* max_active_clusters, int* regs,
+                      int* local_bytes) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config<T>(1, side, 0, attr);
   cudaError_t rc = cudaFuncSetAttribute(
       randaugment_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)randaugment_smem_bytes(side, cluster));
+      (int)cfg.dynamicSmemBytes);
   if (rc != cudaSuccess) return rc;
   cudaFuncAttributes fa;
   rc = cudaFuncGetAttributes(&fa, randaugment_kernel<T>);
   if (rc != cudaSuccess) return rc;
   *regs = fa.numRegs;
   *local_bytes = (int)fa.localSizeBytes;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config<T>(1, side, cluster, 0, attr);
   return cudaOccupancyMaxActiveClusters(max_active_clusters,
                                         randaugment_kernel<T>, &cfg);
 }
@@ -770,23 +772,23 @@ cudaError_t randaugment_mc_launch(const void* in, void* out, const int* pi,
                                   int side, int hs, int ws, int pad,
                                   int n_slots, int pi_cols, bool crop,
                                   int64_t sb, int64_t sy, int64_t sx,
-                                  int64_t sc, int cluster, cudaStream_t stream) {
-  if (!valid_cluster(side, cluster)) return cudaErrorInvalidValue;
+                                  int64_t sc, cudaStream_t stream) {
+  if (!valid_side(side)) return cudaErrorInvalidValue;
   if (is_bf16) {
     return launch<__nv_bfloat16>(in, out, pi, pf, batch, side, hs, ws, pad,
                                  n_slots, pi_cols, crop, sb, sy, sx, sc,
-                                 cluster, stream);
+                                 stream);
   }
   return launch<float>(in, out, pi, pf, batch, side, hs, ws, pad, n_slots,
-                       pi_cols, crop, sb, sy, sx, sc, cluster, stream);
+                       pi_cols, crop, sb, sy, sx, sc, stream);
 }
 
-cudaError_t randaugment_mc_occupancy(bool is_bf16, int side, int cluster,
+cudaError_t randaugment_mc_occupancy(bool is_bf16, int side,
                                      int* max_active_clusters, int* regs,
                                      int* local_bytes) {
-  if (!valid_cluster(side, cluster)) return cudaErrorInvalidValue;
-  return is_bf16 ? occupancy<__nv_bfloat16>(side, cluster, max_active_clusters,
-                                            regs, local_bytes)
-                 : occupancy<float>(side, cluster, max_active_clusters, regs,
+  if (!valid_side(side)) return cudaErrorInvalidValue;
+  return is_bf16 ? occupancy<__nv_bfloat16>(side, max_active_clusters, regs,
+                                            local_bytes)
+                 : occupancy<float>(side, max_active_clusters, regs,
                                     local_bytes);
 }

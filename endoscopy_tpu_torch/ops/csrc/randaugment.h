@@ -36,11 +36,12 @@ constexpr int randaugment_cluster_size(int side) {
                                                                     : 0;
 }
 
-// Launches one cluster of `cluster` blocks per image on `stream` and returns
-// the launch's error. `in` is (batch, hs, ws, 3) float32 or bf16 with element
-// strides (sb, sy, sx, sc); `out` is a contiguous (batch, side, side, 3) of
-// the same dtype; `pi` is (batch, pi_cols) int32 and `pf` (batch, 2 * n_slots)
-// float32, both contiguous. With `crop`, each image's side x side window at
+// Launches one cluster of randaugment_cluster_size(side) blocks per image on
+// `stream` and returns the launch's error. `in` is (batch, hs, ws, 3)
+// float32 or bf16 with element strides (sb, sy, sx, sc); `out` is a
+// contiguous (batch, side, side, 3) of the same dtype; `pi` is (batch,
+// pi_cols) int32 and `pf` (batch, 2 * n_slots) float32, both contiguous.
+// With `crop`, each image's side x side window at
 // (pi[2 + 2n], pi[3 + 2n]) is read in the frame of `in` reflect-padded by
 // `pad` (no edge repeat); without it, side == hs == ws and pad == 0.
 cudaError_t randaugment_mc_launch(const void* in, void* out, const int* pi,
@@ -48,11 +49,11 @@ cudaError_t randaugment_mc_launch(const void* in, void* out, const int* pi,
                                   int side, int hs, int ws, int pad,
                                   int n_slots, int pi_cols, bool crop,
                                   int64_t sb, int64_t sy, int64_t sx,
-                                  int64_t sc, int cluster, cudaStream_t stream);
+                                  int64_t sc, cudaStream_t stream);
 
-// What the launch at (`side`, `cluster`) gets on this card: the kernel's
-// registers per thread and local (spill) bytes, and how many clusters of
-// that shape can be resident at once (cudaOccupancyMaxActiveClusters).
-cudaError_t randaugment_mc_occupancy(bool is_bf16, int side, int cluster,
+// What the launch at `side` gets on this card: the kernel's registers per
+// thread and local (spill) bytes, and how many clusters of that shape can
+// be resident at once (cudaOccupancyMaxActiveClusters).
+cudaError_t randaugment_mc_occupancy(bool is_bf16, int side,
                                      int* max_active_clusters, int* regs,
                                      int* local_bytes);

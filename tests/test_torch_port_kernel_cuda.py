@@ -17,8 +17,10 @@ from endoscopy_tpu_torch.ops import randaugment_kernel as tk
 
 torch.set_num_threads(1)
 
-# 37: rows that do not split evenly over the cluster's blocks
-SIDES = (32, 37, 112, 224)
+# the cluster size each side takes: the configured sides, 37 (rows that do
+# not split evenly over the cluster's blocks) and 260 (clusters of 8, rows
+# 33 per block and 29 in the last)
+CLUSTER_OF_SIDE = {32: 2, 37: 2, 112: 2, 224: 4, 260: 8}
 
 
 @pytest.mark.cuda
@@ -27,16 +29,16 @@ def test_kernel_matches_plain_on_card():
     signs, then after color), at every configured side and an odd one, f32
     and bf16 I/O, in plain mode, crop mode with pad = 0 and crop mode with
     pad > 0: the same pixels as the plain version, one launch counted per
-    call. Then every cluster size the side allows, a strided input, and a
-    side above the kernel's limit."""
+    call. The sides take every cluster size (2, 4 and 8 blocks). Then a
+    strided input, and a side above the kernel's limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernel has no CPU mode")
-    tk.build()
-    for side in SIDES:
+    ext = tk.build()
+    for side, cluster in CLUSTER_OF_SIDE.items():
+        assert ext.randaugment_mc_info(side)[0] == cluster, side
         for dtype in (torch.float32, torch.bfloat16):
             for mode in ("plain", "crop", "pad"):
                 _forced_ops_match_plain(side, mode, dtype)
-    _every_cluster_size_gives_the_same_pixels()
     _strided_input_is_read_through_its_strides()
     _side_above_the_limit_raises()
 
@@ -82,20 +84,6 @@ def _forced_ops_match_plain(side, mode, dtype):
     if pad:  # the pad resolved in the load == reflect_pad, then pad = 0
         assert torch.equal(got, tk.randaugment_mc(ops.reflect_pad(x, pad),
                                                   pi, pf, crop))
-
-
-def _every_cluster_size_gives_the_same_pixels():
-    """The cluster size only splits the rows: each size the side allows
-    (through the binding's override) gives the default launch's pixels."""
-    ext = tk.build()
-    for side in (37, 224):
-        x, pi, pf, crop, pad = _forced_case(side, "pad", torch.bfloat16, seed=1)
-        want = tk.randaugment_mc(x, pi, pf, crop, pad)
-        for cluster in (2, 4, 8):
-            if ext.randaugment_mc_info(side, 0)[0] > cluster:
-                continue  # this cluster's blocks cannot hold the side
-            got = ext.randaugment_mc(x, pi, pf, side, True, pad, cluster)
-            assert torch.equal(got, want), (side, cluster)
 
 
 def _strided_input_is_read_through_its_strides():

@@ -1,18 +1,22 @@
 """Where the RandAugment kernel's time goes, on the card.
 
-    python -m endoscopy_tpu_torch.ops.randaugment_phases [--batch 224] [--side 224]
+    python tools/torch_port/randaugment_phases.py [--batch 224] [--side 224]
 
-Builds variants of the kernel's source beside the kernel itself, three
-with a phase cut out by a text substitution in a copy under
-``build/kernels/phases/``: no store, no load, and neither (the launch, the
-cluster barriers and the ops alone). Their outputs are wrong; only their
-times are read. Each variant and the kernel are timed with CUDA events on
-a bf16 batch in the strong view's mode (``pad = side / 8``): every image
-running no op, the sampled mix, and every image running one op. The
-kernel's no-op time is also taken at a batch of 1 and of one wave.
-Differences between the lines give the load, the store and the ops. A
-fourth variant stamps the device clock at each phase of each image
-(``timeline``) and gives the mean µs of the load, of each op and of the
+A measurement tool of the port; nothing of the package uses it. It builds
+variants of the kernel's source beside the kernel itself, each by a text
+substitution in a copy under ``build/kernels/phases/`` (an edit to the
+lines it substitutes makes it fail loudly). Three have a phase cut out: no
+store, no load, and neither (the launch, the cluster barriers and the ops
+alone); their outputs are wrong, only their times are read. One more,
+``cluster8``, takes clusters of 8 blocks at every side, for comparison with
+the kernel's own choice (4 at 224 px); its outputs are right. Each of
+these and the kernel are timed with CUDA events on a bf16 batch in the
+strong view's mode (``pad = side / 8``): every image running no op, the
+sampled mix, and every image running one op. The kernel's no-op time is
+also taken at a batch of 1 and of one wave. Differences between the
+lines give the load, the store and the ops. The last variant,
+``timeline``, stamps the device clock at each phase of each image and
+gives the mean µs of the load, of each op and of the
 store per image, and the gap between images on one cluster slot. Needs
 an NVIDIA card and nvcc; prints the card's name and power limit first.
 """
@@ -20,23 +24,31 @@ an NVIDIA card and nvcc; prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
-import shutil
 import subprocess
 import sys
+from pathlib import Path
 
-from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the repo root
+
+from endoscopy_tpu_torch.ops import randaugment_kernel as rk  # noqa: E402
+
+_CU, _H = "randaugment.cu", "randaugment.h"
 
 _LOAD = "  {\n    const T* src = in + (size_t)b * sb;"
 _STORE = "  // ---- store with CutoutAbs(16)"
-_SKIP_LOAD = (_LOAD, "  if (S < 0) {\n    const T* src = in + (size_t)b * sb;")
-_SKIP_STORE = (_STORE, "  if (S > 0) { cluster.sync(); return; }\n" + _STORE)
+_SKIP_LOAD = (_CU, _LOAD, "  if (S < 0) {\n    const T* src = in + (size_t)b * sb;")
+_SKIP_STORE = (_CU, _STORE, "  if (S > 0) { cluster.sync(); return; }\n" + _STORE)
+# randaugment_cluster_size keeps only its last choice, 8 blocks
+_CLUSTER8 = (_H, "randaugment_smem_bytes(side, 2) <= kRandaugmentSmemLimit   ? 2\n"
+             "         : randaugment_smem_bytes(side, 4) <= kRandaugmentSmemLimit ? 4\n"
+             "         : ", "")
 # timeline: block rank k of each image's cluster stamps %globaltimer at its
 # start, after the load, at each slot's start, after the slots and at its
 # end, and writes the stamps over the first 64 bytes of its image's output
 # at 64 k (after the last barrier, so over the stored pixels)
 _STAMP = ('  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(stamps[nstamp]));'
           "\n  ++nstamp;\n")
-_TIMELINE = [
+_TIMELINE = [(_CU, old, new) for old, new in [
     ("  if (tid < C) peers[tid] = cluster.map_shared_rank(planes, tid);\n",
      "  if (tid < C) peers[tid] = cluster.map_shared_rank(planes, tid);\n"
      "  unsigned long long stamps[8];\n  int nstamp = 0;\n" + _STAMP),
@@ -52,11 +64,24 @@ _TIMELINE = [
      "  if (tid == 0) {\n    unsigned long long* o = reinterpret_cast<"
      "unsigned long long*>(out + (size_t)b * S * S * 3) + 8 * rank;\n"
      "    for (int i = 0; i < nstamp; ++i) o[i] = stamps[i];\n  }\n}"),
-]
+]]
 VARIANTS = {"no_store": [_SKIP_STORE], "no_load": [_SKIP_LOAD],
-            "neither": [_SKIP_LOAD, _SKIP_STORE], "timeline": _TIMELINE}
+            "neither": [_SKIP_LOAD, _SKIP_STORE], "cluster8": [_CLUSTER8],
+            "timeline": _TIMELINE}
 OPS = {"geometry (rotate)": 7, "sharpness": 8, "equalize": 4,
        "autocontrast": 0, "contrast": 3, "brightness": 1}
+
+
+def variant_sources(name: str) -> dict[str, str]:
+    """The kernel's three source files with the variant's substitutions."""
+    text = {f: (rk._CSRC / f).read_text()
+            for f in ("randaugment.cpp", _H, _CU)}
+    for f, old, new in VARIANTS[name]:
+        if text[f].count(old) != 1:
+            raise RuntimeError(f"variant {name}: the kernel source changed; "
+                               f"{old!r} is not found once in {f}")
+        text[f] = text[f].replace(old, new)
+    return text
 
 
 def build_variant(name: str):
@@ -65,15 +90,8 @@ def build_variant(name: str):
 
     src = rk.BUILD_DIR / "phases" / name
     (src / "build").mkdir(parents=True, exist_ok=True)
-    for f in ("randaugment.cpp", "randaugment.h"):
-        shutil.copy(rk._CSRC / f, src / f)
-    cu = (rk._CSRC / "randaugment.cu").read_text()
-    for old, new in VARIANTS[name]:
-        if cu.count(old) != 1:
-            raise RuntimeError(f"variant {name}: the kernel source changed; "
-                               f"{old!r} is not found once")
-        cu = cu.replace(old, new)
-    (src / "randaugment.cu").write_text(cu)
+    for f, text in variant_sources(name).items():
+        (src / f).write_text(text)
     return cpp_extension.load(
         name=f"endoscopy_randaugment_{name}",
         sources=[str(src / "randaugment.cpp"), str(src / "randaugment.cu")],
@@ -102,8 +120,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     # the variants build in parallel, one process each, then load from cache
-    procs = [subprocess.Popen([sys.executable, "-m", __spec__.name,
-                               "--variant", n]) for n in VARIANTS]
+    procs = [subprocess.Popen([sys.executable, __file__, "--variant", n])
+             for n in VARIANTS]
     if any(p.wait() for p in procs):
         print("randaugment_phases: a variant failed to build", file=sys.stderr)
         return 1
@@ -139,7 +157,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    per_wave = exts["kernel"].randaugment_mc_info(side, 0, True)[2]
+    for n in ("kernel", "cluster8"):
+        cluster, smem, active = exts[n].randaugment_mc_info(side, True)[:3]
+        print(f"{n}: clusters of {cluster} blocks, {smem} B shared memory "
+              f"per block, {active} clusters resident", flush=True)
+    per_wave = exts["kernel"].randaugment_mc_info(side, True)[2]
     for b in (1, per_wave):  # one image; as many images as are resident
         print(f"kernel, no op, batch {b}: {ms(exts['kernel'], *batch(b, -1)):.4f} ms",
               flush=True)
