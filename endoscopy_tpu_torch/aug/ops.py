@@ -1,13 +1,14 @@
 """Image primitives on batched NHWC tensors (subset of ``endoscopy_tpu/aug/ops.py``).
 
 The JAX module works on one HWC image under ``vmap``; here the batch
-dimension is written out. Only what the eval view, the FixMatch views and
-the plain RandAugment need is ported. Random draws come from the caller's
-``torch.Generator``.
+dimension is written out. Only what the eval view, the FixMatch views, the
+labeled train view and the plain RandAugment need is ported. Random draws
+come from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -61,16 +62,111 @@ def pil_fix_coeffs(coef: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def shift_rows(plane: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-    """``out[c, y, x] = plane[c, y, x + shifts[y]]`` with zero fill, for a
-    (C, H, W) plane stack."""
-    c, h, w = plane.shape
-    src = torch.arange(w, device=plane.device)[None, :] + shifts.long()[:, None]
+    """``out[..., y, x] = plane[..., y, x + shifts[..., y]]`` with zero
+    fill, for a (..., H, W) plane stack; ``shifts`` (..., H) broadcasts
+    against the leading dimensions (one (H,) vector for every plane, or
+    (B, 1, H) for per-image shifts of a (B, C, H, W) batch)."""
+    w = plane.shape[-1]
+    src = (torch.arange(w, device=plane.device)
+           + shifts.to(plane.device).long()[..., None])
     valid = (src >= 0) & (src < w)
-    out = torch.gather(plane, 2, src.clamp(0, w - 1).expand(c, h, w))
+    out = torch.gather(plane, -1, src.clamp(0, w - 1).expand(plane.shape))
     return torch.where(valid, out, torch.zeros((), dtype=plane.dtype,
                                                device=plane.device))
 
 
 def shift_cols(plane: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-    """``out[c, y, x] = plane[c, y + shifts[x], x]`` with zero fill."""
-    return shift_rows(plane.transpose(1, 2), shifts).transpose(1, 2)
+    """``out[..., y, x] = plane[..., y + shifts[..., x], x]`` with zero
+    fill."""
+    return shift_rows(plane.transpose(-1, -2), shifts).transpose(-1, -2)
+
+
+def fma(a, b, c):
+    """float32 ``a * b + c`` with one rounding (by way of float64), the
+    fused multiply-add the reference's XLA arithmetic contracts to."""
+    def f64(t):
+        return t.double() if isinstance(t, torch.Tensor) else float(t)
+    out = f64(a) * f64(b) + f64(c)
+    if isinstance(out, torch.Tensor):
+        return out.float()
+    return float(np.float32(out))
+
+
+def vflip(x: torch.Tensor) -> torch.Tensor:
+    return x.flip(1)
+
+
+def rotate(x: torch.Tensor, degrees: torch.Tensor) -> torch.Tensor:
+    """PIL ``Image.rotate(angle)`` per image of an NHWC batch (CCW about the
+    center, nearest, black fill), by Paeth's three shears: rows by
+    ``-tan(θ/2)``, columns by ``sin θ``, rows by ``-tan(θ/2)`` again, each
+    shifting by ``floor(coef * yc + 0.5)`` about the center.
+
+    ``degrees`` (B,) float32. ``θ = degrees * f32(π/180)``; ``tan``/``sin``
+    of the float32 angle are taken in float64 and rounded to float32, and
+    ``coef * yc + 0.5`` is one fused multiply-add, as the reference's XLA
+    arithmetic does it.
+    """
+    theta = degrees.to(x.device, torch.float32) * float(
+        np.float32(np.pi / 180))
+    a = (-torch.tan((theta / 2.0).double())).float()
+    b = torch.sin(theta.double()).float()
+    rows, cols = paeth_shifts(a, b, x.shape[1], x.shape[2])
+    out = shift_rows(x.permute(0, 3, 1, 2), rows[:, None])
+    out = shift_cols(out, cols[:, None])
+    return shift_rows(out, rows[:, None]).permute(0, 2, 3, 1)
+
+
+def paeth_shifts(a: torch.Tensor, b: torch.Tensor, h: int, w: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-image shifts of a Paeth rotation with float32 shear coefficients
+    ``a = -tan(θ/2)``, ``b = sin θ`` (each (B,)): rows ``floor(fma(a, yc,
+    0.5))`` (B, H) and columns ``floor(fma(b, xc, 0.5))`` (B, W), int32,
+    ``yc``/``xc`` the pixel centres' offsets from the image centre."""
+    dev = a.device
+    yc = torch.arange(h, dtype=torch.float32, device=dev) + 0.5 - h / 2.0
+    xc = torch.arange(w, dtype=torch.float32, device=dev) + 0.5 - w / 2.0
+    return (torch.floor(fma(a[:, None], yc, 0.5)).to(torch.int32),
+            torch.floor(fma(b[:, None], xc, 0.5)).to(torch.int32))
+
+
+def _per_image(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B,) → (B, 1, 1, 1) in ``x``'s dtype and device."""
+    return torch.as_tensor(v).to(x.device, x.dtype).view(-1, 1, 1, 1)
+
+
+def _blend(deg: torch.Tensor, x: torch.Tensor, factor: torch.Tensor
+           ) -> torch.Tensor:
+    """ImageEnhance's ``clip(deg + factor * (x - deg), 0, 255)``, one
+    rounding, per image."""
+    f = _per_image(factor, x)
+    return torch.clamp(fma(f, x - deg, deg), 0.0, 255.0).to(x.dtype)
+
+
+def luminance(x: torch.Tensor) -> torch.Tensor:
+    """PIL 'L' of an NHWC batch, (B, H, W) in ``x``'s dtype:
+    ``fma(B, 0.114, fma(G, 0.587, R * 0.299))``, the reference's order."""
+    w = [float(np.float32(v)) for v in (0.299, 0.587, 0.114)]
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    return fma(b, w[2], fma(g, w[1], r * w[0])).to(x.dtype)
+
+
+def brightness(x: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    """ImageEnhance.Brightness: blend with black."""
+    return torch.clamp(x * _per_image(factor, x), 0.0, 255.0)
+
+
+def color(x: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    """ImageEnhance.Color: blend with the image's L."""
+    return _blend(luminance(x)[..., None], x, factor)
+
+
+def contrast(x: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    """ImageEnhance.Contrast: blend with the solid gray
+    ``floor(mean(L) + 0.5)``, L in ``x``'s dtype, the mean in float32 (its
+    sum taken in float64 and rounded once)."""
+    lum = luminance(x)
+    total = lum.double().sum(dim=(1, 2)).float()
+    inv = float(np.float32(1.0) / np.float32(lum.shape[1] * lum.shape[2]))
+    gray = torch.floor(fma(total, inv, 0.5))
+    return _blend(_per_image(gray, x), x, factor)

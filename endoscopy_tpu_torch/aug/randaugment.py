@@ -14,7 +14,7 @@ hand-written CUDA kernel (``ops/csrc/randaugment.cu``) also follows:
 - the float32 arithmetic is the reference's as XLA evaluates it: a
   constant quotient is folded (``v * 0.9 / 10`` is ``v * f32(0.09)``, a
   division by 13 or by ``h*w`` is a product with the float32 reciprocal)
-  and a product feeding a sum is one fused multiply-add. :func:`_fma`
+  and a product feeding a sum is one fused multiply-add. ``ops.fma``
   gives that single rounding by way of float64; the float64 sum is rounded
   once more to float32, which can differ from a true fused multiply-add
   only when the float64 result lies exactly halfway between two float32
@@ -58,16 +58,7 @@ CUTOUT = 16
 CUTOUT_FILL = 127.0
 
 _F = np.float32
-
-
-def _fma(a, b, c):
-    """float32 ``a * b + c`` with one rounding (by way of float64)."""
-    def f64(t):
-        return t.double() if isinstance(t, torch.Tensor) else float(t)
-    out = f64(a) * f64(b) + f64(c)
-    if isinstance(out, torch.Tensor):
-        return out.float()
-    return float(_F(out))
+_fma = ops.fma
 
 
 def _factor(v: float) -> float:
@@ -101,17 +92,15 @@ def geometry_shifts(op: int, v: float, sign: float, h: int, w: int,
     trans_x = int(np.trunc(s32 * mag * _F(w)))
     trans_y = int(np.trunc(s32 * mag * _F(h)))
 
-    yf = torch.arange(h, dtype=torch.float32, device=device) + 0.5
-    xf = torch.arange(w, dtype=torch.float32, device=device) + 0.5
     yi = torch.arange(h, dtype=torch.int32, device=device)
     xi = torch.arange(w, dtype=torch.int32, device=device)
-    rot1 = torch.floor(_fma(float(a), yf - h / 2.0, 0.5)).to(torch.int32)
     zeros_h = torch.zeros(h, dtype=torch.int32, device=device)
     zeros_w = torch.zeros(w, dtype=torch.int32, device=device)
     sa1, sa2 = ops.pil_fix_coeffs(torch.tensor(shear, device=device))
     if op == OP_ROTATE:
-        rot2 = torch.floor(_fma(float(b), xf - w / 2.0, 0.5)).to(torch.int32)
-        return rot1, rot2, rot1
+        rows, cols = ops.paeth_shifts(torch.tensor([a], device=device),
+                                      torch.tensor([b], device=device), h, w)
+        return rows[0], cols[0], rows[0]
     if op == OP_SHEAR_X:
         return (sa1 * yi + sa2) >> 16, zeros_w, zeros_h
     if op == OP_SHEAR_Y:

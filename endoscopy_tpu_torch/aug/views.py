@@ -9,7 +9,9 @@ The strong view's reflect-pad RandomCrop is fused into the RandAugment
 kernel: the view hands it the un-padded flipped image, the crop offsets and
 the padding, and the kernel reads each window through mirrored indices, so
 no padded batch is made. On the card the strong view always runs the CUDA
-kernel; the plain version runs only for tensors on the CPU.
+kernel; the plain version runs only for tensors on the CPU. The labeled
+train view is plain PyTorch: the reference computes it with XLA, outside
+any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -33,17 +35,23 @@ def normalize(img: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return ((img / 255.0 - mean) / std).to(dtype)
 
 
-def _center_float(batch_u8, img_size: int, dtype, device) -> torch.Tensor:
-    """The center crop of the uint8 batch on ``device``, cast to ``dtype``
-    (the crop first, so only the kept pixels are cast)."""
+def _u8_on_device(batch_u8, device) -> torch.Tensor:
     x = torch.as_tensor(batch_u8)
     if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[3] != 3:
         raise ValueError(f"expected a uint8 (B, S, S, 3) batch, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    x = x.to(resolve_device(device))
-    if x.shape[1] != img_size:
-        x = ops.center_crop(x, img_size)
-    return x.to(dtype)
+    return x.to(resolve_device(device), non_blocking=True)
+
+
+def _center(x: torch.Tensor, img_size: int) -> torch.Tensor:
+    """Canonical → IMG_SIZE center crop (none when they are equal)."""
+    return x if x.shape[1] == img_size else ops.center_crop(x, img_size)
+
+
+def _center_float(batch_u8, img_size: int, dtype, device) -> torch.Tensor:
+    """The center crop of the uint8 batch on ``device``, cast to ``dtype``
+    (the crop first, so only the kept pixels are cast)."""
+    return _center(_u8_on_device(batch_u8, device), img_size).to(dtype)
 
 
 def eval_view(batch_u8, img_size: int, dtype=torch.float32,
@@ -88,3 +96,70 @@ def fixmatch_views(batch_u8, img_size: int, dtype=torch.float32,
     pf = torch.as_tensor(pf, device=dev).to(torch.float32)
     strong = randaugment_mc(strong, pi, pf, crop_size=img_size, pad=padding)
     return normalize(weak, dtype), normalize(strong, dtype)
+
+
+# ColorJitter's slots in the order ``orders`` indexes them; slot 3 is the
+# hue, the identity at hue 0 (the only value this view uses)
+_JITTER_OPS = (ops.brightness, ops.contrast, ops.color)
+
+
+def _color_jitter(x: torch.Tensor, factors: torch.Tensor,
+                  orders: torch.Tensor) -> torch.Tensor:
+    """torchvision ColorJitter with hue 0, per image: ``factors`` (B, 3)
+    brightness, contrast, saturation; ``orders`` (B, 4) a permutation of
+    0..3, the op applied at each of the four steps."""
+    for i in range(4):
+        for op_id, op in enumerate(_JITTER_OPS):
+            take = (orders[:, i] == op_id).view(-1, 1, 1, 1)
+            x = torch.where(take, op(x, factors[:, op_id]), x)
+    return x
+
+
+def labeled_train_view(batch_u8, img_size: int, dtype=torch.float32,
+                       generator: torch.Generator | None = None, *,
+                       device=None, hflips=None, vflips=None, angles=None,
+                       factors=None, orders=None) -> torch.Tensor:
+    """The supervised train view of a canonical batch: hflip and vflip
+    (each p=0.3) → rotate by U(-20, 20)° on the canonical image → center
+    crop → ColorJitter(brightness 0.2, contrast 0.2, saturation 0.2, hue 0)
+    in a random op order per image → normalize.
+
+    ``hflips``/``vflips`` (B,) bool, ``angles`` (B,) float32 degrees,
+    ``factors`` (B, 3) and ``orders`` (B, 4) (see :func:`_color_jitter`)
+    override the generator's draws. The factors act in ``dtype``, as the
+    reference draws them in the image dtype.
+    """
+    x = _u8_on_device(batch_u8, device)
+    b = x.shape[0]
+    draws = (hflips, vflips, angles, factors, orders)
+    if generator is None and any(v is None for v in draws):
+        raise ValueError("pass a torch.Generator or every draw explicitly")
+    g = generator
+    gdev = None if g is None else g.device
+    if hflips is None:
+        hflips = torch.rand(b, generator=g, device=gdev) < 0.3
+    if vflips is None:
+        vflips = torch.rand(b, generator=g, device=gdev) < 0.3
+    if angles is None:
+        angles = torch.rand(b, generator=g, device=gdev) * 40.0 - 20.0
+    if factors is None:
+        factors = 0.8 + 0.4 * torch.rand((b, 3), generator=g, device=gdev)
+    if orders is None:
+        orders = torch.argsort(torch.rand((b, 4), generator=g, device=gdev),
+                               dim=1)
+
+    return normalize(_labeled_pixels(x.to(dtype), img_size, hflips, vflips,
+                                     angles, factors, orders), dtype)
+
+
+def _labeled_pixels(x: torch.Tensor, img_size: int, hflips, vflips, angles,
+                    factors, orders) -> torch.Tensor:
+    """The labeled train view before its normalize, in [0, 255]."""
+    b, dev = x.shape[0], x.device
+    hflips = torch.as_tensor(hflips, device=dev).view(b, 1, 1, 1)
+    vflips = torch.as_tensor(vflips, device=dev).view(b, 1, 1, 1)
+    x = torch.where(hflips, ops.hflip(x), x)
+    x = torch.where(vflips, ops.vflip(x), x)
+    x = _center(ops.rotate(x, torch.as_tensor(angles)), img_size)
+    return _color_jitter(x, torch.as_tensor(factors).to(dev, x.dtype),
+                         torch.as_tensor(orders, device=dev))

@@ -1,0 +1,104 @@
+"""Cross-entropy-family losses (port of ``endoscopy_tpu/losses/classification.py``).
+
+The subset the FixMatch step needs: ``cross_entropy`` with torch's
+*weighted-mean* convention (sum of weighted per-sample losses over the sum
+of the selected weights), ``soft_ce_loss``, ``poly_loss`` and the
+``ce_loss`` dispatcher, plus the host-side ``balanced_class_weights``.
+The focal and LDAM branches raise until their slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to endoscopy_tpu_torch yet; see the port "
+        "queue in ROADMAP.md")
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  weight: Optional[torch.Tensor] = None,
+                  reduction: str = "mean") -> torch.Tensor:
+    """F.cross_entropy for integer targets.
+
+    'none' -> per-sample ``w[y_i] * ce_i`` (w = 1 without ``weight``);
+    'mean' -> ``sum_i w[y_i] ce_i / sum_i w[y_i]``; 'sum' -> the sum.
+    """
+    nll = -F.log_softmax(logits, dim=-1).gather(
+        -1, targets.long()[:, None])[:, 0]
+    if weight is not None:
+        w = weight[targets.long()]
+        nll = nll * w
+    else:
+        w = torch.ones_like(nll)
+    if reduction == "none":
+        return nll
+    if reduction == "sum":
+        return nll.sum()
+    return nll.sum() / w.sum()
+
+
+def soft_ce_loss(logits: torch.Tensor, soft_targets: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-sample ``-sum(t * log_softmax(z))``."""
+    return torch.sum(-soft_targets * F.log_softmax(logits, dim=-1), dim=-1)
+
+
+def poly_loss(logits: torch.Tensor, targets: torch.Tensor,
+              epsilon: float = 1.0, ce_weight: Optional[torch.Tensor] = None,
+              reduction: str = "mean") -> torch.Tensor:
+    """PolyLoss: ``poly_i = w[y_i] ce_i + eps (1 - p_{y_i})``.
+
+    The inner CE is the *unnormalized* weighted per-sample CE and 'mean' is
+    a plain batch mean, not the weighted-mean convention.
+    """
+    ce = cross_entropy(logits, targets, weight=ce_weight, reduction="none")
+    pt = F.softmax(logits, dim=-1).gather(-1, targets.long()[:, None])[:, 0]
+    poly = ce + epsilon * (1.0 - pt)
+    if reduction == "mean":
+        return poly.mean()
+    if reduction == "sum":
+        return poly.sum()
+    return poly
+
+
+def ce_loss(logits: torch.Tensor, targets: torch.Tensor,
+            class_weights: Optional[torch.Tensor] = None,
+            use_hard_labels: bool = True, reduction: str = "none",
+            type_loss: str = "none", cls_num_list=None) -> torch.Tensor:
+    """Dispatcher: 'none' (weighted CE) or 'poly' (eps = 2); with
+    ``use_hard_labels=False`` the targets are probability rows and the
+    per-sample soft CE is returned (``reduction`` ignored)."""
+    if not use_hard_labels:
+        return soft_ce_loss(logits, targets)
+    if type_loss == "focal":
+        raise _not_ported("the focal loss")
+    if type_loss == "poly":
+        return poly_loss(logits, targets, epsilon=2.0,
+                         ce_weight=class_weights, reduction=reduction)
+    if type_loss == "ldam" and cls_num_list is not None:
+        raise _not_ported("the LDAM loss (losses/margin.py)")
+    return cross_entropy(logits, targets, weight=class_weights,
+                         reduction=reduction)
+
+
+def balanced_class_weights(targets, num_classes: Optional[int] = None
+                           ) -> np.ndarray:
+    """sklearn 'balanced' weights ``n / (n_classes * bincount)`` over the
+    classes present; an absent class gets 0 when ``num_classes`` is given."""
+    targets = np.asarray(targets, dtype=np.int64)
+    classes = np.unique(targets)
+    counts = np.array([(targets == c).sum() for c in classes],
+                      dtype=np.float64)
+    weights = len(targets) / (len(classes) * counts)
+    if num_classes is None:
+        return weights
+    full = np.zeros(num_classes, dtype=np.float64)
+    full[classes] = weights
+    return full

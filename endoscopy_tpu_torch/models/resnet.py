@@ -7,7 +7,9 @@ JAX module's conventions are kept so weights carry across unchanged:
 - a downsample (1x1 conv with the stride, then BN) is built whenever the
   channels or the stride change, ``layer1.0`` included;
 - the stem max-pool pads by 1;
-- flax BN ``momentum=0.9`` is torch ``momentum=0.1``, ``eps=1e-5``;
+- flax BN ``momentum=0.9`` is torch ``momentum=0.1``, ``eps=1e-5``, and
+  the train-mode running variance follows the biased batch variance, as
+  flax's does (:func:`_flax_running_var`);
 - the pooled features come back in float32.
 
 Torch is NCHW; on the card the caller moves the model and its input to
@@ -24,8 +26,43 @@ import torch
 from torch import nn
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that notes, in train mode, its input's count per
+    channel ``n = N·H·W``, for :func:`_flax_running_var`."""
+
+    count = 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            self.count = x.numel() // x.shape[1]
+        return super().forward(x)
+
+
+def _flax_running_var(model: nn.Module, forward, x: torch.Tensor):
+    """``forward(x)`` with every train-mode BN's running variance moved as
+    flax moves it.
+
+    flax moves ``var`` toward the *biased* batch variance, torch toward the
+    unbiased one (a factor n / (n - 1)). torch's fused BN runs as it is;
+    one multi-tensor pass before it keeps ``(1 - m) rv_old`` of every BN,
+    one after it writes ``rv = rv_new + (end - rv_new) / n``, flax's
+    value. The second pass writes through ``.data``: autograd saved the
+    buffers for the backward, which in train mode does not read them.
+    """
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)
+           and m.training and m.track_running_stats]
+    if not bns:
+        return forward(x)
+    ends = torch._foreach_mul([bn.running_var for bn in bns],
+                              [1.0 - bn.momentum for bn in bns])
+    y = forward(x)
+    torch._foreach_lerp_([bn.running_var.data for bn in bns], ends,
+                         [1.0 / bn.count for bn in bns])
+    return y
+
+
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
 class Bottleneck(nn.Module):
@@ -83,6 +120,11 @@ class ResNet(nn.Module):
         self.num_features = in_ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return _flax_running_var(self, self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for stage in range(len(self.stage_sizes)):
             x = getattr(self, f"layer{stage + 1}")(x)

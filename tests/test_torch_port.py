@@ -4,7 +4,9 @@ The cases are the ``check_*`` functions of ``tests/torch_port_checks/``, one
 module for each part of the port: ``models`` (ResNet, heads, the flax →
 torch weight conversion), ``randaugment`` (the plain RandAugment and the
 kernel wrapper against the Pallas kernel in interpret mode), ``views``,
-``serve`` (the serving slice end to end over HTTP) and ``nojax`` (the import
+``serve`` (the serving slice end to end over HTTP), ``train`` (the FixMatch
+training step: losses, schedules, optimizers, EMA, BN statistics, the
+labeled view, one step, GRAD_ACCUM and IS_FREEZE) and ``nojax`` (the import
 and device rules). This one test runs every case and reports every failure
 with its traceback. It is one test item so that the counts of the JAX
 suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
@@ -15,9 +17,9 @@ import traceback
 
 import torch
 
-from torch_port_checks import models, nojax, randaugment, serve, views
+from torch_port_checks import models, nojax, randaugment, serve, train, views
 
-MODULES = (models, randaugment, views, serve, nojax)
+MODULES = (models, randaugment, views, serve, train, nojax)
 
 
 def _cases():

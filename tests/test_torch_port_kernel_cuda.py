@@ -30,7 +30,8 @@ def test_kernel_matches_plain_on_card():
     and bf16 I/O, in plain mode, crop mode with pad = 0 and crop mode with
     pad > 0: the same pixels as the plain version, one launch counted per
     call. The sides take every cluster size (2, 4 and 8 blocks). Then a
-    strided input, and a side above the kernel's limit."""
+    strided input, a side above the kernel's limit, and one FixMatch
+    training step through the kernel on the card against the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernel has no CPU mode")
     ext = tk.build()
@@ -41,6 +42,7 @@ def test_kernel_matches_plain_on_card():
                 _forced_ops_match_plain(side, mode, dtype)
     _strided_input_is_read_through_its_strides()
     _side_above_the_limit_raises()
+    _resnet_tiny_step_matches_cpu()
 
 
 def _forced_case(side, mode, dtype, seed=0):
@@ -115,3 +117,39 @@ def _side_above_the_limit_raises():
     with pytest.raises(RuntimeError, match=str(tk.MAX_SIDE)):
         tk.build().randaugment_mc(x, pi, pf, side, False)
     assert tk.build().MAX_SIDE == tk.MAX_SIDE
+
+
+def _resnet_tiny_step_matches_cpu():
+    """One FixMatch step of resnet_tiny (32 px, B=4, MU=1, float32 with TF32
+    off, THRES 0 so every strong row trains) from the same weights and
+    draws, through path C's helpers (``torch_port_checks/path_c.py``): on
+    the card, with one kernel launch, and on the CPU. Losses within 1e-4
+    relative; the SGD updates within 0.1 relative L2, because at 1x1
+    pixels in layer4 a ReLU input within rounding of 0 can take the other
+    side on one device and BN spreads it over the batch's gradients
+    (tests/torch_port_checks/train.py bounds the CPU's steps alike)."""
+    from torch_port_checks import path_c as cs
+
+    cfg = cs.train_config(cs.REAL_3_1,
+                          DATA={"IMG_SIZE": 32, "BATCH_SIZE": 4, "MU": 1},
+                          MODEL={"NAME": "resnet_tiny"},
+                          TRAIN={"DTYPE": "float32", "THRES": 0.0})
+    model = cs.seeded_model(cfg, 0, cs.HEAD_STD)
+    batch = cs.canonical_batches(cfg, 0, 1)[0]
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref, ref_upd = cs.step_once(cfg, model, batch, "cpu", 0)
+        before = tk.randaugment_mc.launches
+        got, upd = cs.step_once(cfg, model, batch, "cuda", 0)
+        assert tk.randaugment_mc.launches == before + 1
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    assert got[3] == ref[3] == 1.0
+    for a, b in zip(got[:3], ref[:3]):
+        assert abs(a - b) <= 1e-4 * abs(b), (got, ref)
+    l2, _ = cs.update_errors(upd, ref_upd)
+    assert l2 <= 0.1, l2

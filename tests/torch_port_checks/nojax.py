@@ -20,6 +20,7 @@ from endoscopy_tpu_torch.aug import views
 from endoscopy_tpu_torch.models import build_model
 from endoscopy_tpu_torch.config.loader import default_config
 from endoscopy_tpu_torch.serve import export, server
+from endoscopy_tpu_torch.train.fixmatch import FixMatch
 
 ROOT = Path(__file__).resolve().parents[2]
 PKG = ROOT / "endoscopy_tpu_torch"
@@ -61,7 +62,8 @@ def check_entry_points_need_cuda_unless_cpu_is_asked():
     with tempfile.TemporaryDirectory() as tmp, \
             mock.patch.object(torch.cuda, "is_available", lambda: False):
         for entry in ("resolve_device", "eval_view", "fixmatch_views",
-                      "make_infer_fn", "load_exported", "make_server"):
+                      "labeled_train_view", "make_infer_fn", "load_exported",
+                      "make_server", "FixMatch"):
             _entry_needs_cuda(Path(tmp), entry)
 
 
@@ -76,11 +78,14 @@ def _entry_needs_cuda(tmp_path, entry):
         "eval_view": lambda **kw: views.eval_view(_u8(), 24, **kw),
         "fixmatch_views": lambda **kw: views.fixmatch_views(
             _u8(), 24, generator=torch.Generator(), **kw),
+        "labeled_train_view": lambda **kw: views.labeled_train_view(
+            _u8(), 24, generator=torch.Generator(), **kw),
         "make_infer_fn": lambda **kw: export.make_infer_fn(model, 24, **kw),
         "load_exported": lambda **kw: export.load_exported(path, **kw),
         "make_server": lambda **kw: server.make_server(
             path, host="127.0.0.1", port=0, buckets=(1,), warmup=False,
             **kw).server_close(),
+        "FixMatch": lambda **kw: FixMatch(model, "Adam", **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
