@@ -54,7 +54,33 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    optimizer+EMA, and the host's enqueue time of each); (3) GRAD_ACCUM=2:
    two launches and one update a step; (4) two steps of
    ``kaggle_semisupervised_real_3.yaml`` (224 px, IS_FREEZE): the backbone
-   bit-identical, every BN running statistic and the head moved.
+   bit-identical, every BN running statistic and the head moved;
+7. path D: ``cli/learn.py`` end to end (``tests/torch_port_checks/
+   path_d.py``): seeded six-class colour-separable images at the canonical
+   size (a numpy copy of the JAX package's ``data/synthetic.py``), served
+   by the port's ``CanonicalLoader``/``EvalLoader`` with only the decode
+   swapped for a lookup. D1: ``run_config`` on ``kaggle_semisupervised_
+   real_3_1``'s fields at full width (ResNet-50 with torch's initialization
+   under ``torch.manual_seed``, 112 px, 480 images a step, 1,536 labeled,
+   7,168 unlabeled and 1,024 valid images), cut to 3
+   epochs of 16 steps, an evaluation and a checkpoint after each epoch, EMA
+   decay 0.9; gates: the kernel launched once a step, the train loss lower
+   in epoch 3 than in epoch 1, macro-F1 >= 0.9 after the last epoch,
+   checkpoints ``epoch_1..3``; prints per-epoch wall seconds and images/s,
+   the evaluation's ms per 1,024 images and images/s, ``save_checkpoint``
+   ms and bytes, restore ms and peak memory. D2: a fresh trainer resumes
+   ``latest_checkpoint`` as ``MODEL.PRE_TRAIN_RESUME`` does; gates: every
+   parameter, BN statistic, EMA tensor, Adam moment and the step count
+   bit-identical, ``epoch_start`` and ``best_valid_perf`` from
+   ``meta.json``, the same evaluation bit for bit; then ``EPOCHS`` 4
+   trains epochs 3 and 4 (a resume restarts at the saved epoch, as the
+   reference does), and a resume at the final epoch only evaluates. D3:
+   the 224 px stage (``kaggle_semisupervised_real_3``'s fields, IS_FREEZE;
+   cut to one epoch of 2 steps) through ``run_config``'s steps with stage
+   1's final weights carried; gates: the weights at entry equal stage 1's,
+   after it the backbone is bit-identical and the head and every BN
+   statistic moved, the kernel ran at 224 px (clusters of 4) once a step;
+   prints the 224 px evaluation time.
 
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line and ``{"ok": true, "device": {...}}``.
@@ -74,7 +100,7 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-from torch_port_checks import path_c  # noqa: E402
+from torch_port_checks import path_c, path_d  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 
@@ -902,6 +928,256 @@ def phase_train_freeze(seed: int):
         fail(f"path C freeze: moved {frozen_moved[:4]}, still {still[:4]}")
 
 
+def _log_records(log_dir: Path):
+    """The trainer's JSONL metric log (``utils/logging.py``), in order."""
+    with open(log_dir / "fixmatch.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _state_diff(a, b) -> list:
+    """Names of the tensors where two ``TrainState.state_dict()`` differ,
+    and of the entries only one of them has."""
+    import torch
+
+    fa, fb = path_d.flat_state(a), path_d.flat_state(b)
+    return sorted(set(fa) ^ set(fb)) + sorted(
+        k for k in set(fa) & set(fb) if not (
+            fa[k].dtype == fb[k].dtype and torch.equal(fa[k].cpu(), fb[k].cpu())))
+
+
+def _eval_timed(trainer):
+    """``evaluate_one`` between CUDA events: (loss meter, metrics, ms)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    loss, metric = trainer.evaluate_one()
+    end.record()
+    torch.cuda.synchronize()
+    return loss, metric, start.elapsed_time(end)
+
+
+def phase_learn(seed: int, out_dir: Path):
+    """Path D: ``cli/learn.py`` on the card, D1-D3."""
+    import shutil
+    from unittest import mock
+
+    import torch
+
+    from endoscopy_tpu_torch.aug import views
+    from endoscopy_tpu_torch.ckpt import io as ckpt_io
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log_dir = out_dir / "log"
+    cfg1, cfg2 = path_d.stage_configs(str(out_dir / "ckpt"), str(log_dir))
+    t0 = time.perf_counter()
+    data1 = path_d.synthetic_data(cfg1, path_d.STAGE1_SIZES, seed)
+    print(f"path D: stage 1 data {path_d.STAGE1_SIZES} (labeled, unlabeled, "
+          f"valid) at {data1[1].size} px made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    sides = []
+    kernel = views.randaugment_mc
+
+    def recording(x, *a, **k):
+        sides.append(tuple(x.shape[1:3]))
+        return kernel(x, *a, **k)
+
+    # D1: run_config at full width
+    epochs, steps = int(cfg1.TRAIN.EPOCHS), int(cfg1.TRAIN.EVAL_STEP)
+    torch.cuda.reset_peak_memory_stats()
+    rk.randaugment_mc.launches = 0
+    t0 = time.perf_counter()
+    torch.manual_seed(seed)  # the model's own initialization, seeded
+    with mock.patch.object(views, "randaugment_mc", recording):
+        trainer1, _ = learn.run_config(cfg1, device="cuda", data=data1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = rk.randaugment_mc.launches
+    peak = torch.cuda.max_memory_allocated()
+    log = _log_records(log_dir)
+    train = [r for r in log if "loss/train" in r]
+    valid = [r for r in log if "loss/valid" in r]
+    images = trainer1._images_per_step()
+    step_ms = [r["time/epoch_s"] * 1e3 / steps for r in train]
+    print(f"path D1: run_config, {epochs} epochs of {steps} steps, {images} "
+          f"images a step, in {fit_s:.2f} s; per epoch: wall s "
+          f"{[round(r['time/epoch_s'], 3) for r in train]}, step ms "
+          f"{[round(t, 3) for t in step_ms]}, images/s "
+          f"{[round(r['throughput/images_per_sec'], 1) for r in train]}, "
+          f"train loss {[round(r['loss/train'], 4) for r in train]}, valid "
+          f"loss {[round(r['loss/valid'], 4) for r in valid]}, macro-F1 "
+          f"{[r['metric/macro_f1'] for r in valid]}; randaugment_mc "
+          f"launches {launches} at sides {sorted(set(sides))}; peak memory "
+          f"{peak} B", flush=True)
+    saved = sorted(p.name for p in (out_dir / "ckpt" / "stage1").iterdir())
+    side1, side2 = int(cfg1.DATA.IMG_SIZE), int(cfg2.DATA.IMG_SIZE)
+    if launches != epochs * steps or set(sides) != {(side1, side1)}:
+        fail(f"path D1: {launches} kernel launches at {set(sides)} in "
+             f"{epochs * steps} steps")
+    if not train[-1]["loss/train"] < train[0]["loss/train"]:
+        fail("path D1: the train loss did not fall from epoch 1 to "
+             f"{epochs}")
+    if len(valid) != epochs or valid[-1]["metric/macro_f1"] < 0.9:
+        fail(f"path D1: macro-F1 {valid[-1]['metric/macro_f1']} after the "
+             "last epoch (0.9 needed)")
+    if saved != [f"epoch_{e}" for e in range(1, epochs + 1)]:
+        fail(f"path D1: checkpoints {saved}")
+
+    eval_runs = [_eval_timed(trainer1) for _ in range(3)]
+    eval_ms = float(np.median([ms for _, _, ms in eval_runs]))
+    n_valid = path_d.STAGE1_SIZES[2]
+    t0 = time.perf_counter()
+    timing_path = trainer1.save_checkpoint(str(out_dir / "timing"))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    ckpt_bytes = sum(f.stat().st_size for f in Path(timing_path).iterdir())
+    t0 = time.perf_counter()
+    ckpt_io.restore_checkpoint(timing_path, "cuda")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    shutil.rmtree(out_dir / "timing")
+    # one evaluation batch: its CUDA-event time against the host's time to
+    # enqueue it, and the forward alone
+    u8, t, m = next(iter(data1[1]))
+    ev_model = trainer1._eval_model()
+
+    def batch():
+        trainer1._eval_step(ev_model, u8, t, m)
+
+    x = views.eval_view(u8, int(cfg1.DATA.IMG_SIZE), trainer1.dtype,
+                        device="cuda").permute(0, 3, 1, 2)
+
+    @torch.inference_mode()
+    def forward():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            ev_model(x)
+
+    split = {"batch_ms": cuda_ms(batch, iters=10),
+             "batch_host_ms": host_ms(batch, iters=10),
+             "forward_ms": cuda_ms(forward, iters=10),
+             "forward_host_ms": host_ms(forward, iters=10)}
+    print(f"path D1: one evaluation batch of {len(t)} (CUDA events / host "
+          f"enqueue, ms): _eval_step {split['batch_ms']:.3f} / "
+          f"{split['batch_host_ms']:.3f}, the forward alone "
+          f"{split['forward_ms']:.3f} / {split['forward_host_ms']:.3f}",
+          flush=True)
+    print(f"path D1: evaluate_one on {n_valid} images ({len(data1[1])} "
+          f"batches, {trainer1.dtype}): "
+          f"{eval_ms:.3f} ms median of {[round(ms, 3) for _, _, ms in eval_runs]}"
+          f" (CUDA events), {n_valid / eval_ms * 1e3:.1f} images/s; "
+          f"save_checkpoint {save_ms:.1f} ms, {ckpt_bytes} B; restore to the "
+          f"card {restore_ms:.1f} ms", flush=True)
+
+    # D2: resume the latest checkpoint in a fresh trainer
+    latest = ckpt_io.latest_checkpoint(cfg1.TRAIN.SAVE_CP)
+    cfg_resume = path_d.stage_configs(str(out_dir / "ckpt"), str(log_dir))[0]
+    cfg_resume.TRAIN.EPOCHS = epochs + 1
+    cfg_resume.MODEL.PRE_TRAIN_RESUME = latest
+    trainer2 = learn.prepare_trainer(cfg_resume, device="cuda", data=data1)
+    diff = _state_diff(trainer1.state.state_dict(),
+                       trainer2.state.state_dict())
+    loss1, metric1, _ = eval_runs[-1]
+    loss2, metric2, _ = _eval_timed(trainer2)
+    same_eval = (loss1.avg == loss2.avg and loss1.count == loss2.count
+                 and {k: v for k, v in metric1.items() if k != "sen/spec"}
+                 == {k: v for k, v in metric2.items() if k != "sen/spec"})
+    print(f"path D2: resumed {Path(latest).name} in a fresh trainer: tensors "
+          f"that differ {len(diff)} {diff[:4]}; step {trainer2.state.step} "
+          f"(saved {trainer1.state.step}); epoch_start {trainer2.epoch_start}, "
+          f"best_valid_perf {trainer2.best_valid_perf} (saved "
+          f"{trainer1.best_valid_perf}); evaluation {loss2.avg!r} vs "
+          f"{loss1.avg!r}, the same: {same_eval}", flush=True)
+    if (diff or trainer2.epoch_start != epochs
+            or trainer2.best_valid_perf != trainer1.best_valid_perf
+            or not same_eval):
+        fail("path D2: the resumed trainer differs from the saved one")
+    step0 = trainer2.state.step
+    rk.randaugment_mc.launches = 0
+    trainer2.fit()
+    torch.cuda.synchronize()
+    more = rk.randaugment_mc.launches
+    saved = sorted(p.name for p in (out_dir / "ckpt" / "stage1").iterdir())
+    print(f"path D2: fit to EPOCHS {epochs + 1} from the resume: "
+          f"{trainer2.state.step - step0} steps, randaugment_mc launches "
+          f"{more}; checkpoints {saved}", flush=True)
+    if (trainer2.state.step - step0 != 2 * steps or more != 2 * steps
+            or saved[-1] != f"epoch_{epochs + 1}"):
+        fail("path D2: the resumed fit did not train epochs "
+             f"{epochs} and {epochs + 1}")
+    cfg_final = path_d.stage_configs(str(out_dir / "ckpt"), str(log_dir))[0]
+    cfg_final.TRAIN.EPOCHS = epochs + 1
+    cfg_final.MODEL.PRE_TRAIN_RESUME = ckpt_io.latest_checkpoint(
+        cfg1.TRAIN.SAVE_CP)
+    rk.randaugment_mc.launches = 0
+    trainer_f, model = learn.run_config(cfg_final, device="cuda", data=data1)
+    torch.cuda.synchronize()
+    print(f"path D2: a resume at the final epoch: randaugment_mc launches "
+          f"{rk.randaugment_mc.launches}, step {trainer_f.state.step} "
+          f"(restored {trainer2.state.step})", flush=True)
+    if rk.randaugment_mc.launches or trainer_f.state.step != trainer2.state.step:
+        fail("path D2: a resume at the final epoch trained")
+
+    # D3: the 224 px stage on stage 1's final weights
+    t0 = time.perf_counter()
+    data2 = path_d.synthetic_data(cfg2, path_d.STAGE2_SIZES, seed + 1)
+    gen2_s = time.perf_counter() - t0
+    carried = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    trainer3 = learn.prepare_trainer(cfg2, model=model,
+                                     carry_state=model.state_dict(),
+                                     device="cuda", data=data2)
+    entry = trainer3.state.model.state_dict()
+    at_entry = [k for k in carried if not torch.equal(entry[k], carried[k])]
+    ema_entry = [k for k, v in trainer3.state.ema.state_dict().items()
+                 if not torch.equal(v, carried[k])]
+    sides.clear()
+    rk.randaugment_mc.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(views, "randaugment_mc", recording):
+        trainer3.fit()
+    torch.cuda.synchronize()
+    fit2_s = time.perf_counter() - t0
+    launches2 = rk.randaugment_mc.launches
+    steps2 = int(cfg2.TRAIN.EVAL_STEP) * int(cfg2.TRAIN.EPOCHS)
+    after = trainer3.state.model.state_dict()
+    frozen_moved = [k for k, _ in trainer3.state.model.named_parameters()
+                    if k.startswith("backbone.")
+                    and not torch.equal(after[k], carried[k])]
+    still = [k for k in after if (k.startswith("head.") or k.endswith(
+        ("running_mean", "running_var"))) and torch.equal(after[k], carried[k])]
+    _, metric3, eval2_ms = _eval_timed(trainer3)
+    eval2_ms = min(eval2_ms, _eval_timed(trainer3)[2])
+    print(f"path D3: stage 2 data {path_d.STAGE2_SIZES} at "
+          f"{data2[1].size} px made in {gen2_s:.2f} s; tensors not carried "
+          f"{at_entry[:4]}, EMA tensors not synced {ema_entry[:4]}; fit "
+          f"{steps2} steps at {side2} px, IS_FREEZE, in {fit2_s:.2f} s: backbone "
+          f"parameters moved {len(frozen_moved)}, head and BN statistics "
+          f"that did not move {len(still)}; randaugment_mc launches "
+          f"{launches2} at sides {sorted(set(sides))} (clusters of "
+          f"{rk.build().randaugment_mc_info(side2, True)[0]}); peak memory "
+          f"{torch.cuda.max_memory_allocated()} B; evaluate_one on "
+          f"{path_d.STAGE2_SIZES[2]} images at {side2} px {eval2_ms:.3f} ms "
+          f"(the faster of two), macro-F1 {metric3['macro/f1']}", flush=True)
+    if at_entry or ema_entry:
+        fail("path D3: stage 2 did not start from stage 1's final weights")
+    if frozen_moved or still:
+        fail(f"path D3: moved {frozen_moved[:4]}, still {still[:4]}")
+    cluster = rk.build().randaugment_mc_info(side2, True)[0]
+    if launches2 != steps2 or set(sides) != {(side2, side2)} or cluster != 4:
+        fail(f"path D3: {launches2} launches at {set(sides)} in {steps2} "
+             f"steps, clusters of {cluster}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"launches": launches, "steps": epochs * steps,
+            "launches_per_step": launches / (epochs * steps),
+            "step_ms": step_ms, "eval_ms": eval_ms, "save_ms": save_ms,
+            "ckpt_bytes": ckpt_bytes, "restore_ms": restore_ms,
+            "peak_bytes": peak, "macro_f1": valid[-1]["metric/macro_f1"],
+            "stage2_side": side2,
+            "stage2_launches_per_step": launches2 / steps2,
+            "stage2_eval_ms": eval2_ms, "eval_split": split}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -948,6 +1224,11 @@ def main(argv=None) -> int:
     print(f"path C took {time.perf_counter() - t0:.1f} s", flush=True)
     print("path C: " + json.dumps({"correctness": correct, "full": train}),
           flush=True)
+    t0 = time.perf_counter()
+    learn_row = phase_learn(args.seed, Path(__file__).resolve().parent
+                            / "build" / "chip_smoke" / "path_d")
+    print(f"path D took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("path D: " + json.dumps(learn_row), flush=True)
 
     kernels = [{
         "name": "randaugment_mc", "route": "cuda",
@@ -963,6 +1244,13 @@ def main(argv=None) -> int:
                    "ms": train["kernel_ms"], "plain_ms": train["plain_ms"],
                    "bound_ms": train["bound_ms"], "bound_by": "bytes",
                    "side": IMG_C},
+        "path_d": {"launches": learn_row["launches"],
+                   "steps": learn_row["steps"],
+                   "launches_per_step": learn_row["launches_per_step"],
+                   "side": IMG_C,
+                   "stage2_side": learn_row["stage2_side"],
+                   "stage2_launches_per_step":
+                       learn_row["stage2_launches_per_step"]},
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,6 +43,8 @@ class FixMatch(BaseTrainer):
     each train loader yielding ``(canonical uint8 NHWC batch, targets)``,
     then ``get_config(config, labeled_targets)`` and ``train_one(epoch)``."""
 
+    trainer_name = "FixMatch"
+
     def get_config(self, config,
                    labeled_targets: Optional[np.ndarray] = None) -> None:
         self._setup_common(config, int(config.TRAIN.EVAL_STEP),

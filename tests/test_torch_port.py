@@ -6,8 +6,10 @@ torch weight conversion), ``randaugment`` (the plain RandAugment and the
 kernel wrapper against the Pallas kernel in interpret mode), ``views``,
 ``serve`` (the serving slice end to end over HTTP), ``train`` (the FixMatch
 training step: losses, schedules, optimizers, EMA, BN statistics, the
-labeled view, one step, GRAD_ACCUM and IS_FREEZE) and ``nojax`` (the import
-and device rules). This one test runs every case and reports every failure
+labeled view, one step, GRAD_ACCUM and IS_FREEZE), ``learn`` (``cli/learn.py``:
+manifests, loaders, metrics, evaluation, checkpoints, a JAX checkpoint's
+resume, transfer, ``fit`` and the CLI) and ``nojax`` (the import and
+device rules). This one test runs every case and reports every failure
 with its traceback. It is one test item so that the counts of the JAX
 suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
 within 2, stay the JAX suite's.
@@ -17,9 +19,10 @@ import traceback
 
 import torch
 
-from torch_port_checks import models, nojax, randaugment, serve, train, views
+from torch_port_checks import (learn, models, nojax, randaugment, serve,
+                               train, views)
 
-MODULES = (models, randaugment, views, serve, train, nojax)
+MODULES = (models, randaugment, views, serve, train, learn, nojax)
 
 
 def _cases():

@@ -438,20 +438,21 @@ def _weights():
     return balanced_class_weights(LABELED, num_classes=NUM_CLASSES).astype(F32)
 
 
-def _compare_step(port, jax_out, got, opt, frozen=()):
-    """Losses, parameters, BN statistics and EMA after one step."""
+def _compare_step(port, jax_out, got, opt, frozen=(), start=None):
+    """Losses, parameters, BN statistics and EMA after one step from the
+    JAX state ``start`` (default: the shared initial state)."""
     jstate, jloss, jaux = jax_out
     for g, w, name in zip((got[0], *got[1]), (jloss, *jaux),
                           ("loss", "lx", "lu", "mask_mean")):
         _close(float(g), float(w), rtol=1e-5, what=name)
     assert 0.0 < float(got[1][2]) < 1.0
-    assert port.state.step == int(jstate.step) == 1
-    base = _jax_base().state
-    init = _port_state(base.params, base.batch_stats)
+    start = _jax_base().state if start is None else start
+    assert port.state.step == int(jstate.step) == int(start.step) + 1
+    init = _port_state(start.params, start.batch_stats)
     want = _port_state(jstate.params, jstate.batch_stats)
     now = port.state.model.state_dict()
     params = dict(port.state.model.named_parameters())
-    lr = port.lr_schedule(0)
+    lr = port.lr_schedule(int(start.step))
     for k, w in want.items():
         if k.endswith("num_batches_tracked"):
             continue
