@@ -82,6 +82,38 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    statistic moved, the kernel ran at 224 px (clusters of 4) once a step;
    prints the 224 px evaluation time.
 
+8. path E: the supervised trainer (``endoscopy_tpu_torch/train/
+   supervised.py``; configs and helpers in ``tests/torch_port_checks/
+   path_e.py``) on path D's seeded 268 px images of known class (1,024
+   train, 1,024 valid). E1: ``run_config`` on
+   ``configs/kaggle_supervised_patho.yaml``'s fields at full width
+   (ResNet-50 from fresh weights with flax's initializer, 224 px, B=32,
+   Adam, cosine, EMA, class weights), cut to 3 epochs of 32 steps with an
+   evaluation each and EMA decay 0.9; gates: the train loss lower in epoch
+   3 than in epoch 1, the teacher's macro-F1 >= 0.9 after the last epoch,
+   the checkpoints those the loss and F1 gate selects; prints step ms
+   (CUDA events and epoch wall / steps), images/s, the model-FLOP share
+   of the bf16 peak, one step's host enqueue, evaluation ms per 1,024
+   images and peak memory. E2: the triplet branch at
+   ``kaggle_supervised_ezbm.yaml``'s width (96 images a step), 3 warm-up
+   and 8 timed steps; gates: every positive of its anchor's class and
+   every negative of another, the MLP head's BN statistics moved, finite
+   losses, and at GRAD_ACCUM=2 matched A/P/N rows in each microbatch and
+   one update a step. E3: one SGD step at B=4, 112 px, float32 without
+   TF32, card against CPU, for the plain and the triplet branch (path C
+   part 1's method: each block's last BN scale 0.1, the same dropout
+   draws), both devices on the card's view and on the CPU's view (the
+   same draws; the two views within 1e-5); the updates' bound is three
+   times the largest of the CPU float32 step's distance from its float64
+   step and each device's own move between the two views, plus 1e-3. E4:
+   the chain:
+   ``cli/evaluate.py::evaluate`` on E1's checkpoint gives that epoch's
+   evaluation bit for bit; ``cli/pseudo_label.py::pseudo_label`` over the
+   1,024 train images equals ``argmax · [max > THRES]`` of a direct eval
+   forward; the checkpoint grafted as ``MODEL.PRE_TRAIN_PATH`` into
+   ``kaggle_semisupervised_real_3_1``'s FixMatch trainer arrives with its
+   backbone bit-identical. No kernel runs on this path (0 launches).
+
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line and ``{"ok": true, "device": {...}}``.
 """
@@ -100,7 +132,7 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-from torch_port_checks import path_c, path_d  # noqa: E402
+from torch_port_checks import path_c, path_d, path_e  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 
@@ -126,6 +158,11 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 # view replaced by the weak one (the kernel skipped) at 3.1e-2..0.41 and
 # 0.86..0.92 (seeds 0-2); each run checks that this control fails.
 PART1_SEEDS, PART1_RESIDUAL_GAMMA = 3, 0.1
+TRIPLET_WARMUP_STEPS, TRIPLET_TIMED_STEPS = 3, 8  # path E2
+# path E3: the labeled view on the card against the CPU's, normalized
+# units: the last-bit roundings of its jitter's means and its normalize
+# (7.2e-7 read on the H100), far below a wrong op or draw
+E3_VIEW_TOL = 1e-5
 TRAIN_TOL_F32_LOSS = 1e-4
 TRAIN_TOL_BF16_LOSS, TRAIN_TOL_BF16_UPDATE = 0.02, 0.5
 
@@ -928,9 +965,9 @@ def phase_train_freeze(seed: int):
         fail(f"path C freeze: moved {frozen_moved[:4]}, still {still[:4]}")
 
 
-def _log_records(log_dir: Path):
+def _log_records(log_dir: Path, run: str = "fixmatch"):
     """The trainer's JSONL metric log (``utils/logging.py``), in order."""
-    with open(log_dir / "fixmatch.jsonl") as f:
+    with open(log_dir / f"{run}.jsonl") as f:
         return [json.loads(line) for line in f]
 
 
@@ -1168,7 +1205,7 @@ def phase_learn(seed: int, out_dir: Path):
         fail(f"path D3: {launches2} launches at {set(sides)} in {steps2} "
              f"steps, clusters of {cluster}")
     shutil.rmtree(out_dir, ignore_errors=True)
-    return {"launches": launches, "steps": epochs * steps,
+    return data2, {"launches": launches, "steps": epochs * steps,
             "launches_per_step": launches / (epochs * steps),
             "step_ms": step_ms, "eval_ms": eval_ms, "save_ms": save_ms,
             "ckpt_bytes": ckpt_bytes, "restore_ms": restore_ms,
@@ -1176,6 +1213,377 @@ def phase_learn(seed: int, out_dir: Path):
             "stage2_side": side2,
             "stage2_launches_per_step": launches2 / steps2,
             "stage2_eval_ms": eval2_ms, "eval_split": split}
+
+
+def _same_eval(a, b) -> bool:
+    """Two ``evaluate_one`` results bit for bit (the table of sensitivity
+    and specificity aside)."""
+    (la, ma), (lb, mb) = a, b
+    return (la.avg == lb.avg and la.count == lb.count
+            and {k: v for k, v in ma.items() if k != "sen/spec"}
+            == {k: v for k, v in mb.items() if k != "sen/spec"})
+
+
+def supervised_fit(seed: int, out_dir: Path, data2):
+    """Path E1: ``run_config`` on kaggle_supervised_patho's fields, its
+    steps marked with CUDA events and its evaluations recorded. Returns
+    ``(trainer, data, evaluations, step marks, fit seconds)``."""
+    from unittest import mock
+
+    import torch
+
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.train.supervised import SupLearning
+
+    cfg = path_e.patho_config(str(out_dir / "ckpt"), str(out_dir / "log"))
+    data = path_e.supervised_data(cfg, data2)
+    marks, evals = [], []
+    step, evaluate = SupLearning._train_step, SupLearning.evaluate_one
+
+    def marked_step(self, *a, **k):
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        marks.append((self.epoch, mark))
+        return step(self, *a, **k)
+
+    def recorded_eval(self, *a, **k):
+        out = evaluate(self, *a, **k)
+        evals.append((self.epoch, out))
+        return out
+
+    torch.manual_seed(seed)  # the fresh weights, seeded
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(SupLearning, "_train_step", marked_step), \
+            mock.patch.object(SupLearning, "evaluate_one", recorded_eval):
+        trainer, _ = learn.run_config(cfg, device="cuda", data=data)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    marks.append((None, end))
+    return trainer, data, evals, marks, time.perf_counter() - t0
+
+
+def supervised_chain(trainer1, data, evals):
+    """Path E4: ``evaluate`` on E1's checkpoint, ``pseudo_label`` over the
+    train images against a direct eval forward, and the checkpoint as
+    real_3_1's ``PRE_TRAIN_PATH``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from endoscopy_tpu_torch.aug.views import eval_view
+    from endoscopy_tpu_torch.ckpt import io as ckpt_io
+    from endoscopy_tpu_torch.cli import evaluate as evaluate_cli
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.cli import pseudo_label as pseudo_cli
+    from endoscopy_tpu_torch.data.manifest import Manifest
+    from endoscopy_tpu_torch.data.pipeline import EvalLoader
+    from endoscopy_tpu_torch.models import build_model
+    from endoscopy_tpu_torch.train.common import model_logits
+
+    cfg = trainer1.config
+    latest = ckpt_io.latest_checkpoint(cfg.TRAIN.SAVE_CP)
+    epoch = int(Path(latest).name.split("_")[1])
+    trainer = learn.make_trainer(cfg, build_model(cfg), device="cuda")
+    learn.configure(trainer, cfg, data)
+    trainer.load_checkpoint(latest)
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = evaluate_cli.evaluate(trainer)
+    want = dict(evals)[epoch]
+    same = _same_eval(got, want)
+    print(f"path E4: cli/evaluate.py on {Path(latest).name}: valid loss "
+          f"{got[0].avg!r} vs {want[0].avg!r} in E1, macro-F1 "
+          f"{got[1]['macro/f1']} vs {want[1]['macro/f1']}; the same bit for "
+          f"bit: {same}", flush=True)
+    if not same:
+        fail("path E4: cli/evaluate.py differs from E1's evaluation")
+
+    train = data[0]
+    bs, size = int(cfg.DATA.BATCH_SIZE), train.size
+    pool = path_d.array_loader(EvalLoader, train.images)(
+        Manifest(np.arange(len(train.images)),
+                 np.zeros(len(train.images), np.int64)), bs, size)
+    t0 = time.perf_counter()
+    preds = pseudo_cli.pseudo_label(trainer, pool)
+    pseudo_s = time.perf_counter() - t0
+    model, thres = trainer._eval_model(), float(cfg.TRAIN.THRES)
+    direct = []
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        for u8, _, keep in pool:
+            x = eval_view(u8, int(cfg.DATA.IMG_SIZE), trainer.dtype,
+                          device="cuda").permute(0, 3, 1, 2)
+            probs = torch.softmax(model_logits(model(x)).float(), -1).cpu()
+            pred = probs.argmax(1) * (probs.amax(1) > thres)
+            direct += pred[torch.from_numpy(keep)].tolist()
+    passed = sum(p != 0 for p in preds)
+    print(f"path E4: cli/pseudo_label.py over {len(preds)} images in "
+          f"{pseudo_s:.3f} s: {passed} above THRES {thres} with a non-zero "
+          f"class; equal to a direct eval forward: {preds == direct}",
+          flush=True)
+    if preds != direct:
+        fail("path E4: pseudo_label differs from argmax * [max > THRES]")
+
+    cfg_fm = path_c.train_config(path_c.REAL_3_1,
+                                 MODEL={"PRE_TRAIN_PATH": latest})
+    data_fm = path_d.synthetic_data(cfg_fm, (32, 224, 32), 0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        fm = learn.prepare_trainer(cfg_fm, device="cuda", data=data_fm)
+    donor = ckpt_io.restore_checkpoint(latest, "cpu")[0]["model"]
+    got_sd = fm.state.model.state_dict()
+    ema_sd = fm.state.ema.state_dict()
+    keys = [k for k in donor if k.startswith("backbone.")]
+    moved = [k for k in keys if not (
+        torch.equal(got_sd[k].cpu(), donor[k])
+        and torch.equal(ema_sd[k].cpu(), donor[k]))]
+    print(f"path E4: {Path(latest).name} as real_3_1's PRE_TRAIN_PATH "
+          f"({type(fm).__name__}): backbone tensors {len(keys)}, not "
+          f"bit-identical in the model or the EMA {len(moved)} {moved[:4]}",
+          flush=True)
+    if moved or not keys:
+        fail("path E4: the backbone did not arrive bit-identical")
+    return epoch
+
+
+def triplet_trainer(seed: int, data2, accum: int):
+    """Path E2's trainer at kaggle_supervised_ezbm's width, and the list
+    it appends each triplet batch's (anchor targets, rows its positives
+    and negatives were read from) to."""
+    import torch
+
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.models import build_model
+
+    cfg = path_c.train_config(path_e.EZBM, TRAIN={
+        "SAVE_CP": "", "LOG_DIR": "", "GRAD_ACCUM": accum})
+    torch.manual_seed(seed)
+    trainer = learn.make_trainer(cfg, build_model(cfg), device="cuda")
+    learn.configure(trainer, cfg, path_e.supervised_data(cfg, data2))
+    loader, built, sampled = trainer.train_dl, [], []
+    sample, build = loader.sample, trainer._build_triplet_batch
+    loader.sample = lambda idx: sampled.append(np.asarray(idx)) or sample(idx)
+
+    def recorded(batch_u8, targets):
+        rows = build(batch_u8, targets)
+        built.append((np.asarray(targets), sampled[-1]))
+        return rows
+
+    trainer._build_triplet_batch = recorded
+    return trainer, built
+
+
+def supervised_triplet(seed: int, data2):
+    """Path E2: the triplet branch at kaggle_supervised_ezbm's width, timed;
+    then GRAD_ACCUM=2."""
+    import torch
+
+    trainer, built = triplet_trainer(seed, data2, 1)
+    b = int(trainer.config.DATA.BATCH_SIZE)
+    bn = trainer.state.model.fc.bn
+    stats0 = [bn.running_mean.clone(), bn.running_var.clone()]
+    trainer.n_iter_per_epoch = TRIPLET_WARMUP_STEPS
+    t0 = time.perf_counter()
+    trainer.train_one(1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    marks = []
+    step = trainer._train_step
+
+    def marked(*a, **k):
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        marks.append(mark)
+        return step(*a, **k)
+
+    trainer._train_step = marked
+    trainer.n_iter_per_epoch = TRIPLET_TIMED_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    meter = trainer.train_one(2)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    step_ms = np.array([a.elapsed_time(z)
+                        for a, z in zip(marks, marks[1:] + [end])])
+    tg = trainer.train_dl.manifest.targets
+    pos_ok = all((tg[idx[:b]] == t).all() for t, idx in built)
+    neg_ok = all((tg[idx[b:]] != t).all() for t, idx in built)
+    moved = not (torch.equal(bn.running_mean, stats0[0])
+                 or torch.equal(bn.running_var, stats0[1]))
+    images = 3 * b
+    out = {"step_ms_median": float(np.median(step_ms)),
+           "step_ms_min": float(step_ms.min()),
+           "step_ms_max": float(step_ms.max()),
+           "images_per_s": images * len(step_ms) / wall_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "d_ap_d_an": trainer._last_triplet_dist}
+    print(f"path E2: triplet branch, {len(step_ms)} steps of {images} "
+          f"images ({b} anchors, positives, negatives; {trainer.img_size} "
+          f"px, {trainer.dtype}) after {TRIPLET_WARMUP_STEPS} warm-up steps "
+          f"({warm_s:.2f} s): step ms (CUDA events) median "
+          f"{out['step_ms_median']:.3f}, min {out['step_ms_min']:.3f}, max "
+          f"{out['step_ms_max']:.3f}; {out['images_per_s']:.1f} images/s; "
+          f"mean loss {meter.avg:.4f}; last step's mean d_ap, d_an "
+          f"{trainer._last_triplet_dist}; positives of the anchor's class "
+          f"{pos_ok}, negatives of another {neg_ok} ({len(built)} batches); "
+          f"MLP head BN statistics moved {moved}; peak memory "
+          f"{out['peak_bytes']} B", flush=True)
+    if not (pos_ok and neg_ok and moved and np.isfinite(meter.avg)):
+        fail("path E2: the triplet batch or the head's BN is wrong")
+
+    trainer, built = triplet_trainer(seed, data2, 2)
+    trainer.n_iter_per_epoch = 2
+    meter = trainer.train_one(1)
+    torch.cuda.synchronize()
+    rows = trainer._micro_indices(3 * b)
+    t, idx = built[-1]
+    cls = np.concatenate([t, tg[idx]])
+    matched = all((c[0] == c[1]).all() and (c[0] != c[2]).all()
+                  for c in (cls[r.numpy()].reshape(3, -1) for r in rows))
+    blocks = all(np.array_equal(r.numpy().reshape(3, -1),
+                                np.arange(3 * b).reshape(3, 2, -1)[:, i])
+                 for i, r in enumerate(rows))
+    print(f"path E2: GRAD_ACCUM=2, 2 steps of {images} images: microbatch "
+          f"rows [A_i; P_i; N_i] {blocks}, classes matched {matched}, "
+          f"updates {trainer.state.step}, mean loss {meter.avg:.4f}",
+          flush=True)
+    if not (blocks and matched and trainer.state.step == 2
+            and np.isfinite(meter.avg)):
+        fail("path E2: GRAD_ACCUM=2 does not split the triplet batch into "
+             "matched microbatches with one update each")
+    return out
+
+
+def supervised_step_matches_cpu(seed: int):
+    """Path E3: one SGD step, card against CPU, plain and triplet."""
+    out = {}
+    for base, triplet in ((path_e.PATHO, False), (path_e.EZBM, True)):
+        cfg = path_e.step_config(base, triplet)
+        model = path_c.seeded_model(cfg, seed, path_c.HEAD_STD,
+                                    PART1_RESIDUAL_GAMMA)
+        x, t = path_e.step_batch(cfg, seed)
+        views = {dev: path_e.step_view(cfg, (x, t), seed, dev)
+                 for dev in ("cuda", "cpu")}
+        view_err = float((views["cuda"].cpu() - views["cpu"]).abs().max())
+        # each device's step on each device's view: (stats, updates)
+        steps = {(dev, v): path_e.step_once(cfg, model, views[v], t, dev, seed)
+                 for dev in ("cpu", "cuda") for v in ("cuda", "cpu")}
+        upd64 = path_e.step_float64(cfg, model, views["cuda"], t, seed)
+        ref, ref_upd = steps["cpu", "cuda"]
+        got, upd = steps["cuda", "cuda"]
+        cpu_l2 = path_c.update_errors(ref_upd, upd64)[0]
+        # how far each device's float32 step moves when its input changes
+        # in the last bit (the other device's view): a ReLU near-tie that
+        # one summation order crosses moves one tensor's update by percents
+        sens = {dev: path_c.update_errors(steps[dev, "cpu"][1],
+                                          steps[dev, "cuda"][1])[0]
+                for dev in ("cpu", "cuda")}
+        rel = max(abs(a - b) / abs(b) for v in ("cuda", "cpu")
+                  for a, b in zip(steps["cuda", v][0], steps["cpu", v][0]))
+        l2s = {v: path_c.update_errors(steps["cuda", v][1],
+                                       steps["cpu", v][1]) for v in views}
+        l2, worst = l2s["cuda"]
+        l2_64 = path_c.update_errors(upd, upd64)[0]
+        bound = 3 * max(cpu_l2, *sens.values()) + 1e-3
+        name = "triplet" if triplet else "plain"
+        print(f"path E3, {name}: the labeled view on the card vs the CPU's "
+              f"on the same draws: max_abs_err {view_err:.3e} (bound "
+              f"{E3_VIEW_TOL}); the float32 step, card vs CPU (B=4, {len(x)} "
+              f"images, 112 px): stats {got} vs {ref}, worst relative error "
+              f"on either view {rel:.3e} (bound {TRAIN_TOL_F32_LOSS}); SGD "
+              f"updates relative L2 on the card's view {l2:.3e} (worst tensor "
+              f"{worst:.3e}), on the CPU's {l2s['cpu'][0]:.3e} (bound "
+              f"{bound:.3e}: the CPU's float32 step is {cpu_l2:.3e} from "
+              f"float64, and a view's last bits move the CPU's step by "
+              f"{sens['cpu']:.3e}, the card's by {sens['cuda']:.3e}); the "
+              f"card against float64 {l2_64:.3e}", flush=True)
+        if view_err > E3_VIEW_TOL:
+            fail(f"path E3: the {name} step's view differs on the card")
+        if rel > TRAIN_TOL_F32_LOSS or max(l2, l2s["cpu"][0]) > bound:
+            fail(f"path E3: the {name} step on the card differs from the "
+                 "CPU's")
+        out[name] = {"view_max_abs_err": view_err, "loss_rel_err": rel,
+                     "update_l2_err": l2, "update_l2_err_cpu_view":
+                         l2s["cpu"][0], "update_l2_err_vs_f64": l2_64,
+                     "cpu_f32_vs_f64_l2": cpu_l2,
+                     "view_sensitivity_l2": sens}
+    return out
+
+
+def phase_supervised(seed: int, out_dir: Path, data2):
+    """Path E: the supervised trainer, E1-E4."""
+    import shutil
+
+    import torch
+
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rk.randaugment_mc.launches = 0
+    trainer, data, evals, marks, fit_s = supervised_fit(seed, out_dir, data2)
+    peak = torch.cuda.max_memory_allocated()
+    log = _log_records(out_dir / "log", "suplearning")
+    train = [r for r in log if "loss/train" in r]
+    steps = trainer.n_iter_per_epoch
+    step_ms = [a.elapsed_time(z) for (ea, a), (ez, z) in zip(marks, marks[1:])
+               if ea == ez and ea > 1]
+    med = float(np.median(step_ms))
+    f1 = [float(m["macro/f1"]) for _, (_, m) in evals]
+    saves = sorted(p.name for p in (out_dir / "ckpt").iterdir())
+    want = [f"epoch_{e}" for e in path_e.gate_saves(
+        [(e, l.avg, float(m["macro/f1"])) for e, (l, m) in evals])]
+    images = trainer._images_per_step()
+    flops = train_flops_per_image(trainer.state.model,
+                                  int(trainer.config.DATA.IMG_SIZE)) * images
+    share = flops / (med * 1e-3) / H100_BF16_FLOPS
+    print(f"path E1: run_config, {len(train)} epochs of {steps} steps of "
+          f"{images} images ({trainer.img_size} px, {trainer.dtype}) in "
+          f"{fit_s:.2f} s; per epoch: wall "
+          f"s {[round(r['time/epoch_s'], 3) for r in train]}, step ms (wall / "
+          f"steps) {[round(r['time/epoch_s'] * 1e3 / steps, 3) for r in train]}"
+          f", images/s {[round(r['throughput/images_per_sec'], 1) for r in train]}"
+          f", train loss {[round(r['loss/train'], 4) for r in train]}, valid "
+          f"loss {[round(l.avg, 4) for _, (l, _) in evals]}, teacher macro-F1 "
+          f"{f1}; step ms (CUDA events between steps, epochs 2-3) median "
+          f"{med:.3f}, min {min(step_ms):.3f}, max {max(step_ms):.3f}; model "
+          f"FLOPs per step {flops} ({flops / images:.4e} per image), "
+          f"{share:.4f} of the dense bf16 peak; checkpoints {saves} (the gate "
+          f"selects {want}); peak memory {peak} B", flush=True)
+    if not train[-1]["loss/train"] < train[0]["loss/train"]:
+        fail("path E1: the train loss did not fall from epoch 1 to the last")
+    if len(f1) != len(train) or f1[-1] < 0.9:
+        fail(f"path E1: macro-F1 {f1} (0.9 needed after the last epoch)")
+    if saves != want:
+        fail(f"path E1: checkpoints {saves}, the gate selects {want}")
+
+    out = {"e2": supervised_triplet(seed, data2),
+           "e3": supervised_step_matches_cpu(seed)}
+    out["e4_checkpoint_epoch"] = supervised_chain(trainer, data, evals)
+
+    eval_ms = float(np.median([_eval_timed(trainer)[2] for _ in range(3)]))
+    u8, t = next(iter(data[0]))
+    w = trainer._epoch_weights(1)
+    enqueue_ms = host_ms(lambda: trainer._train_step(u8, t, w), iters=5)
+    launches = rk.randaugment_mc.launches
+    print(f"path E1: evaluate_one on {len(data[1].manifest)} images "
+          f"{eval_ms:.3f} ms (median of three, CUDA events); one step's host "
+          f"enqueue {enqueue_ms:.3f} ms against its {med:.3f} ms on the card; "
+          f"randaugment_mc launches on path E {launches} (no kernel on this "
+          f"path)", flush=True)
+    if launches:
+        fail("path E launched the RandAugment kernel")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out.update({"e1": {"step_ms_median": med, "step_ms_min": min(step_ms),
+                       "step_ms_max": max(step_ms),
+                       "images_per_s": [r["throughput/images_per_sec"]
+                                        for r in train],
+                       "flop_share": share, "flops_per_step": flops,
+                       "enqueue_ms": enqueue_ms, "eval_ms": eval_ms,
+                       "peak_bytes": peak, "macro_f1": f1},
+                "launches": launches})
+    return out
 
 
 def main(argv=None) -> int:
@@ -1225,10 +1633,14 @@ def main(argv=None) -> int:
     print("path C: " + json.dumps({"correctness": correct, "full": train}),
           flush=True)
     t0 = time.perf_counter()
-    learn_row = phase_learn(args.seed, Path(__file__).resolve().parent
-                            / "build" / "chip_smoke" / "path_d")
+    scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    data2, learn_row = phase_learn(args.seed, scratch / "path_d")
     print(f"path D took {time.perf_counter() - t0:.1f} s", flush=True)
     print("path D: " + json.dumps(learn_row), flush=True)
+    t0 = time.perf_counter()
+    sup_row = phase_supervised(args.seed, scratch / "path_e", data2)
+    print(f"path E took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("path E: " + json.dumps(sup_row), flush=True)
 
     kernels = [{
         "name": "randaugment_mc", "route": "cuda",
@@ -1251,6 +1663,7 @@ def main(argv=None) -> int:
                    "stage2_side": learn_row["stage2_side"],
                    "stage2_launches_per_step":
                        learn_row["stage2_launches_per_step"]},
+        "path_e": {"launches": sup_row["launches"]},
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,14 +1,17 @@
 """Carry weights from the JAX package's flax trees to the port.
 
 ``from_jax_params(params, batch_stats)`` takes the flax ``ClassifierHead``
-trees (nested dicts of numpy arrays) and returns the port's ``state_dict``.
-It keeps its own copy of the key map behind the JAX package's
-``export_resnet_torch_state``:
+or ``ModelwEmb`` trees (nested dicts of numpy arrays) and returns the
+port's ``state_dict``. It keeps its own copy of the key map behind the JAX
+package's ``export_resnet_torch_state``:
 
 - conv kernels go HWIO → OIHW;
-- the head's dense kernel is transposed;
+- dense kernels are transposed: the linear head's ``head.fc``, and
+  ``ModelwEmb``'s MLP head ``fc.{fc1,fc2}`` and projection
+  ``head_emb.{proj1,proj2}``;
 - BN ``scale``/``bias`` become ``weight``/``bias`` and the ``mean``/``var``
-  batch statistics become running statistics.
+  batch statistics become running statistics (the MLP head's ``fc.bn``
+  too).
 
 ``write_npz``/``read_npz`` store the two trees as one flat ``.npz`` (keys
 like ``params/backbone/conv1/kernel``), so a dump made beside the JAX
@@ -18,10 +21,12 @@ package reaches the port without JAX.
 ``tools/torch_port/orbax_to_npz.py`` dumps it from an orbax checkpoint,
 into the port's ``TrainState.state_dict()``: the parameters and BN
 statistics, the EMA copies, optax Adam's ``mu``/``nu``/``count`` as torch
-Adam's ``exp_avg``/``exp_avg_sq``/``step`` (mapped like the parameters),
-and ``step``. Its keys: ``step``, ``meta`` (the checkpoint's ``meta.json``
-as a string) and the trees ``params``, ``batch_stats``, ``ema_params``,
-``ema_batch_stats``, ``adam/mu`` and ``adam/nu``, with ``adam/count``.
+Adam's ``exp_avg``/``exp_avg_sq``/``step``, or optax SGD's Nesterov
+``trace`` as torch SGD's ``momentum_buffer`` (both mapped like the
+parameters), and ``step``. Its keys: ``step``, ``meta`` (the checkpoint's
+``meta.json`` as a string), the trees ``params``, ``batch_stats``,
+``ema_params`` and ``ema_batch_stats``, and either ``adam/mu`` and
+``adam/nu`` with ``adam/count``, or ``sgd/trace``.
 """
 
 from __future__ import annotations
@@ -68,8 +73,9 @@ def _walk(tree: Mapping, path: Tuple[str, ...]):
 
 
 def _port_items(params: Mapping, batch_stats: Optional[Mapping]):
-    """``(port key, value)`` for a flax ``ClassifierHead``-shaped tree;
-    the BN running statistics too when ``batch_stats`` is given."""
+    """``(port key, value)`` for a flax ``ClassifierHead``- or
+    ``ModelwEmb``-shaped tree; the BN running statistics too when
+    ``batch_stats`` is given."""
     p_bb = params["backbone"]
     b_bb = None if batch_stats is None else batch_stats.get("backbone", {})
     for tkey, path in _key_map(_stage_sizes(p_bb)).items():
@@ -88,9 +94,21 @@ def _port_items(params: Mapping, batch_stats: Optional[Mapping]):
                 raise KeyError(f"batch_stats has no entry for {path}")
             yield f"backbone.{tkey}.running_mean", stats["mean"]
             yield f"backbone.{tkey}.running_var", stats["var"]
-    fc = params["head"]["fc"]
-    yield "head.fc.weight", np.asarray(fc["kernel"]).T
-    yield "head.fc.bias", fc["bias"]
+    heads = ((("head", "fc"),) if "head" in params else
+             (("fc", "fc1"), ("fc", "bn"), ("fc", "fc2"),
+              ("head_emb", "proj1"), ("head_emb", "proj2")))
+    for path in heads:
+        node, name = _walk(params, path), ".".join(path)
+        if "kernel" in node:
+            yield f"{name}.weight", np.asarray(node["kernel"]).T
+            yield f"{name}.bias", node["bias"]
+            continue
+        yield f"{name}.weight", node["scale"]
+        yield f"{name}.bias", node["bias"]
+        if batch_stats is not None:
+            stats = _walk(batch_stats, path)
+            yield f"{name}.running_mean", stats["mean"]
+            yield f"{name}.running_var", stats["var"]
 
 
 def _tensor(value) -> torch.Tensor:
@@ -99,7 +117,8 @@ def _tensor(value) -> torch.Tensor:
 
 def from_jax_params(params: Mapping, batch_stats: Mapping
                     ) -> Dict[str, torch.Tensor]:
-    """flax ``ClassifierHead`` trees → the port's ``ClassifierHead`` state."""
+    """flax ``ClassifierHead``/``ModelwEmb`` trees → the port model's
+    state."""
     out: Dict[str, torch.Tensor] = {}
     for key, value in _port_items(params, batch_stats):
         out[key] = _tensor(value)
@@ -150,23 +169,33 @@ def read_npz(path: str) -> Tuple[dict, dict]:
     return trees["params"], trees.get("batch_stats", {})
 
 
+def _optimizer_state(trees: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The optimizer's per-parameter state by port name: optax Adam's
+    ``mu``/``nu``/``count`` as torch Adam's ``exp_avg``/``exp_avg_sq``/
+    ``step``, or SGD's Nesterov ``trace`` as its ``momentum_buffer``."""
+    if "adam" in trees:
+        adam = trees["adam"]
+        count = torch.tensor(float(adam["count"]))
+        nu = dict(_port_items(adam["nu"], None))
+        return {k: {"step": count.clone(), "exp_avg": _tensor(m),
+                    "exp_avg_sq": _tensor(nu[k])}
+                for k, m in _port_items(adam["mu"], None)}
+    return {k: {"momentum_buffer": _tensor(t)}
+            for k, t in _port_items(trees["sgd"]["trace"], None)}
+
+
 def train_state_from_npz(path: str) -> Tuple[Dict, Dict]:
     """A JAX train state ``.npz`` → ``(TrainState.state_dict(), meta)``."""
     trees = _read_trees(path)
-    missing = {"step", "meta", "params", "batch_stats", "adam"} - set(trees)
-    if missing:
+    missing = {"step", "meta", "params", "batch_stats"} - set(trees)
+    if missing or not {"adam", "sgd"} & set(trees):
         raise ValueError(f"{path} is not a train state .npz (missing "
-                         f"{sorted(missing)}; only Adam/AdamW states map)")
-    adam = trees["adam"]
-    count = torch.tensor(float(adam["count"]))
-    mu = dict(_port_items(adam["mu"], None))
-    nu = dict(_port_items(adam["nu"], None))
+                         f"{sorted(missing) or 'adam/ or sgd/'}; only Adam, "
+                         "AdamW and SGD states map)")
     state = {
         "step": int(trees["step"]),
         "model": from_jax_params(trees["params"], trees["batch_stats"]),
-        "optimizer": {k: {"step": count.clone(), "exp_avg": _tensor(m),
-                          "exp_avg_sq": _tensor(nu[k])}
-                      for k, m in mu.items()},
+        "optimizer": _optimizer_state(trees),
         "ema": (from_jax_params(trees["ema_params"], trees["ema_batch_stats"])
                 if "ema_params" in trees else None),
     }

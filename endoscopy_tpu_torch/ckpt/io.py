@@ -9,9 +9,12 @@ Durability: each file is written under a temporary name, flushed to disk
 and moved into place with ``os.replace``, so a crash leaves either the old
 file or the new one, never a torn one, and a re-save at the same epoch
 (a resume restarts at the saved epoch) never removes the old state before
-the new one is durable. ``meta.json`` goes first and ``state.pt`` last:
-a directory with ``meta.json`` and no ``state.pt`` is a save that did not
-finish, and :func:`latest_checkpoint` skips it.
+the new one is durable. ``state.pt`` goes first and ``meta.json`` after
+it, as the reference swaps in its state before it writes its meta: a
+crash between the two leaves the new state beside the old meta (or, on a
+first save, no meta: :func:`restore_checkpoint` then reads an empty one),
+never a new meta beside an old state. A directory without ``state.pt`` is
+a save that did not finish, and :func:`latest_checkpoint` skips it.
 
 Saves are synchronous (the caller's tensors are written before the call
 returns); restores read with ``torch.load(weights_only=True)``.
@@ -53,10 +56,10 @@ def save_checkpoint(save_dir: str, name: str, state: Dict,
     ``<save_dir>/<name>/``; returns that directory's absolute path."""
     path = os.path.abspath(os.path.join(save_dir, name))
     os.makedirs(path, exist_ok=True)
-    _durable_replace(os.path.join(path, META),
-                     lambda f: f.write(json.dumps(metadata).encode()))
     _durable_replace(os.path.join(path, STATE),
                      lambda f: torch.save(state, f))
+    _durable_replace(os.path.join(path, META),
+                     lambda f: f.write(json.dumps(metadata).encode()))
     return path
 
 

@@ -8,14 +8,15 @@ Usage::
 Two configs run progressive resizing: the model is built once from the
 first config, and the second stage trains the first stage's final weights
 at its own image size. ``TRAIN.IS_SSL`` with ``MODEL.TYPE_SEMI: FixMatch``
-is the ported trainer; ``MODEL.PRE_TRAIN_PATH`` grafts a donor's trunk and
+trains FixMatch, ``TRAIN.IS_SSL: False`` the supervised trainer (its plain
+and triplet branches); ``MODEL.PRE_TRAIN_PATH`` grafts a donor's trunk and
 ``MODEL.PRE_TRAIN_RESUME`` resumes a checkpoint (a directory of the port,
 or a JAX train state dumped to ``.npz``). SIGTERM checkpoints at the next
 epoch boundary and exits 143.
 
 pandas (the CSVs) and cv2 (the JPEGs) are imported only by
 :func:`build_data`, so a caller that brings its own loaders needs neither.
-Not ported yet (ROADMAP.md): the other trainers and ``--trainer ezbm``,
+Not ported yet (ROADMAP.md): CoMatch, SemiFormer and ``--trainer ezbm``,
 ``DATA.LOADER: native`` and ``--preview``.
 """
 
@@ -24,7 +25,9 @@ from __future__ import annotations
 import argparse
 
 from endoscopy_tpu_torch.config.loader import get_config, is_none
-from endoscopy_tpu_torch.data.manifest import build_ssl_manifests, shard_for_host
+from endoscopy_tpu_torch.data.manifest import (build_ssl_manifests,
+                                               build_supervised_manifests,
+                                               shard_for_host)
 from endoscopy_tpu_torch.data.pipeline import (CanonicalLoader, EvalLoader,
                                                canonical_size)
 from endoscopy_tpu_torch.models import build_model
@@ -38,22 +41,28 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def build_data(config):
-    """``((labeled, unlabeled) loaders, valid loader, cls_num_list,
-    labeled targets)`` from the config's CSVs, for an SSL config."""
+    """``(train loader(s), valid loader, cls_num_list, labeled targets)``
+    from the config's CSVs: ``(labeled, unlabeled)`` loaders for an SSL
+    config, one loader over the full supervised split otherwise."""
     import pandas as pd
 
     if config.DATA.get("LOADER") == "native":
         raise _not_ported("DATA.LOADER: native (the C++ loader)")
-    if not config.TRAIN.IS_SSL:
-        raise _not_ported("the supervised trainer")
     df_anno = pd.read_csv(config.DATA.ANNO)
+    size = canonical_size(config)
+    bs = int(config.DATA.BATCH_SIZE)
+    workers = int(config.DATA.NUM_WORKERS)
+    if not config.TRAIN.IS_SSL:
+        train, valid, cls_num_list = build_supervised_manifests(
+            config, df_anno, is_full_sup=True)
+        train_dl = CanonicalLoader(shard_for_host(train), bs, size, seed=0,
+                                   num_workers=workers)
+        valid_dl = EvalLoader(valid, bs, size, num_workers=workers)
+        return train_dl, valid_dl, cls_num_list, train.targets
     df_unanno = (None if config.DATA.MOCKUP_SSL
                  else pd.read_csv(config.DATA.UNANNO))
     labeled, unlabeled, valid, cls_num_list = build_ssl_manifests(
         config, df_anno, df_unanno)
-    size = canonical_size(config)
-    bs = int(config.DATA.BATCH_SIZE)
-    workers = int(config.DATA.NUM_WORKERS)
     lab_dl = CanonicalLoader(shard_for_host(labeled), bs, size, seed=0,
                              num_workers=workers)
     unl_dl = CanonicalLoader(shard_for_host(unlabeled),
@@ -65,9 +74,11 @@ def build_data(config):
 
 def make_trainer(config, model, device=None):
     """The trainer ``TRAIN.IS_SSL`` and ``MODEL.TYPE_SEMI`` select."""
-    type_semi = config.MODEL.TYPE_SEMI
     if not config.TRAIN.IS_SSL:
-        raise _not_ported("the supervised trainer")
+        from endoscopy_tpu_torch.train.supervised import SupLearning
+        return SupLearning(model=model, opt_func=config.TRAIN.OPT_NAME,
+                           device=device)
+    type_semi = config.MODEL.TYPE_SEMI
     if type_semi == "FixMatch":
         from endoscopy_tpu_torch.train.fixmatch import FixMatch
         return FixMatch(model=model, opt_func=config.TRAIN.OPT_NAME,
@@ -75,6 +86,18 @@ def make_trainer(config, model, device=None):
     if type_semi in ("CoMatch", "SemiFormer"):
         raise _not_ported(f"the {type_semi} trainer")
     raise ValueError(f"unknown TYPE_SEMI {type_semi}")
+
+
+def configure(trainer, config, data) -> None:
+    """``get_dataloader`` and ``get_config`` with ``data`` (what
+    :func:`build_data` returns), as each trainer takes them."""
+    train_dl, valid_dl, cls_num_list, labeled_targets = data
+    trainer.get_dataloader(train_dl, valid_dl)
+    if config.TRAIN.IS_SSL:
+        trainer.get_config(config, labeled_targets=labeled_targets)
+    else:
+        trainer.get_config(config, cls_num_list=cls_num_list,
+                           labeled_targets=labeled_targets)
 
 
 def prepare_trainer(config, model=None, carry_state=None, device=None,
@@ -85,12 +108,10 @@ def prepare_trainer(config, model=None, carry_state=None, device=None,
     :func:`build_data` returns; by default it is built from the CSVs."""
     if data is None:
         data = build_data(config)
-    train_dl, valid_dl, _, labeled_targets = data
     if model is None:
         model = build_model(config)
     trainer = make_trainer(config, model, device=device)
-    trainer.get_dataloader(train_dl, valid_dl)
-    trainer.get_config(config, labeled_targets=labeled_targets)
+    configure(trainer, config, data)
     from endoscopy_tpu_torch.ckpt.transfer import (apply_pretrain,
                                                    carry_stage_weights)
     if carry_state is not None:

@@ -1,10 +1,12 @@
 """Cross-entropy-family losses (port of ``endoscopy_tpu/losses/classification.py``).
 
-The subset the FixMatch step needs: ``cross_entropy`` with torch's
-*weighted-mean* convention (sum of weighted per-sample losses over the sum
-of the selected weights), ``soft_ce_loss``, ``poly_loss`` and the
-``ce_loss`` dispatcher, plus the host-side ``balanced_class_weights``.
-The focal and LDAM branches raise until their slice (ROADMAP.md).
+The subset the FixMatch and supervised steps need: ``cross_entropy`` with
+torch's *weighted-mean* convention (sum of weighted per-sample losses over
+the sum of the selected weights), ``soft_ce_loss``, ``poly_loss`` and the
+``ce_loss`` dispatcher, plus the host-side class weights
+(``balanced_class_weights``, and ``rdw_weights`` with its
+``effective_number_weights`` for ``TRAIN_RULE: 'RDW'``). The focal and
+LDAM branches raise until their slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -102,3 +104,22 @@ def balanced_class_weights(targets, num_classes: Optional[int] = None
     full = np.zeros(num_classes, dtype=np.float64)
     full[classes] = weights
     return full
+
+
+def effective_number_weights(cls_num_list, beta: float = 0.9999
+                             ) -> np.ndarray:
+    """Effective-number class weights ``(1 - beta) / (1 - beta^n_c)``,
+    normalized to sum to the number of classes."""
+    counts = np.asarray(cls_num_list, dtype=np.float64)
+    eff = 1.0 - np.power(beta, counts)
+    w = (1.0 - beta) / eff
+    return w / np.sum(w) * len(counts)
+
+
+def rdw_weights(epoch: int, cls_num_list) -> np.ndarray:
+    """Deferred re-weighting (``TRAIN_RULE: 'RDW'``): uniform weights
+    (beta 0) before epoch 25, effective-number weights with beta 0.9999
+    from then on."""
+    betas = [0.0, 0.9999]
+    idx = min(epoch // 25, 1)
+    return effective_number_weights(cls_num_list, beta=betas[idx])

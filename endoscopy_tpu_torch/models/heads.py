@@ -1,9 +1,30 @@
-"""Classification heads (port of ``endoscopy_tpu/models/heads.py`` subset)."""
+"""Classification heads (port of ``endoscopy_tpu/models/heads.py``).
+
+``build_head`` is the reference's factory: a simple linear head, or the
+"complex" MLP in → in/4 → ReLU → Dropout(0.2) → BatchNorm1d → out. The
+bias-free head of the margin losses is not ported yet (ROADMAP.md).
+
+Heads run in float32 with autocast off, as the flax heads do (their
+``dtype`` is float32) while the backbone computes in bf16. Their kernels
+start from flax's initializer (``models/resnet.py::dense``).
+
+The MLP head's dropout takes its keep-mask from the caller (``keep_mask``,
+the checks pass the JAX package's) or draws it from the caller's
+``generator`` (the trainer's, on its device); its BN keeps flax's running
+variance (``models/resnet.py::_flax_running_var``).
+"""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+from endoscopy_tpu_torch.models.resnet import (BatchNorm1d, _flax_running_var,
+                                               dense)
+
+KEEP = 0.8  # 1 - the MLP head's dropout rate
 
 
 class LinearHead(nn.Module):
@@ -11,25 +32,58 @@ class LinearHead(nn.Module):
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
-        self.fc = nn.Linear(in_features, out_features)
+        self.fc = dense(in_features, out_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep_mask=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.fc(x)
 
 
-class ClassifierHead(nn.Module):
-    """backbone → pooled float32 features → head → logits.
+class MLPHead(nn.Module):
+    """The 'complex' head: Dense(in/4) → ReLU → Dropout(0.2) →
+    BatchNorm1d(momentum 0.9 in flax's terms, eps 1e-5) → Dense."""
 
-    The head runs in float32 with autocast off, as the flax head does
-    (``LinearHead.dtype = float32``) while the backbone computes in bf16.
-    """
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.fc1 = dense(in_features, in_features // 4)
+        self.bn = BatchNorm1d(in_features // 4, eps=1e-5, momentum=0.1)
+        self.fc2 = dense(in_features // 4, out_features)
+
+    def _after_dropout(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.bn(x))
+
+    def forward(self, x: torch.Tensor, keep_mask=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = torch.relu(self.fc1(x))
+        if not self.training:
+            return self._after_dropout(x)
+        if keep_mask is None:
+            dev = x.device if generator is None else generator.device
+            keep_mask = torch.rand(x.shape, generator=generator,
+                                   device=dev) < KEEP
+        x = torch.where(torch.as_tensor(keep_mask, device=x.device),
+                        x / KEEP, torch.zeros_like(x))
+        return _flax_running_var(self, self._after_dropout, x)
+
+
+def build_head(in_features: int, out_features: int,
+               is_complex: bool = False) -> nn.Module:
+    """The reference's head factory (with bias)."""
+    if is_complex:
+        return MLPHead(in_features, out_features)
+    return LinearHead(in_features, out_features)
+
+
+class ClassifierHead(nn.Module):
+    """backbone → pooled float32 features → head → logits."""
 
     def __init__(self, backbone: nn.Module, head: nn.Module):
         super().__init__()
         self.backbone = backbone
         self.head = head
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep_mask=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         fts = self.backbone(x)
         with torch.autocast(device_type=fts.device.type, enabled=False):
-            return self.head(fts.float())
+            return self.head(fts.float(), keep_mask, generator)

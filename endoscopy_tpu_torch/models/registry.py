@@ -1,7 +1,8 @@
 """``build_model`` for the port (subset of ``endoscopy_tpu/models/registry.py``).
 
-Only the plain classifier over ``resnet50`` and ``resnet_tiny`` is ported;
-every other backbone or wrapper raises and points at the port queue in
+``resnet50`` and ``resnet_tiny`` under the plain classifier or, for
+CoMatch and ``MODEL.IS_TRIPLET``, under ``ModelwEmb``. Every other backbone
+and the bias-free margin head raise and point at the port queue in
 ROADMAP.md.
 """
 
@@ -11,7 +12,8 @@ from torch import nn
 
 from endoscopy_tpu_torch.config.loader import is_none
 from endoscopy_tpu_torch.models import resnet
-from endoscopy_tpu_torch.models.heads import ClassifierHead, LinearHead
+from endoscopy_tpu_torch.models.heads import ClassifierHead, build_head
+from endoscopy_tpu_torch.models.modelwemb import ModelwEmb
 
 _REGISTRY = {
     "resnet50": resnet.resnet50,
@@ -31,12 +33,14 @@ def create_backbone(name: str) -> nn.Module:
     return _REGISTRY[name]()
 
 
-def build_model(config) -> ClassifierHead:
-    """Backbone + linear head for a config, with float32 parameters."""
+def build_model(config) -> nn.Module:
+    """The config's model with float32 parameters: ``ModelwEmb`` for
+    CoMatch and the triplet branch, else backbone + linear head."""
+    num_classes = int(config.MODEL.NUM_CLASSES)
+    backbone = create_backbone(config.MODEL.NAME)
     if config.MODEL.TYPE_SEMI == "CoMatch" or bool(config.MODEL.IS_TRIPLET):
-        raise _not_ported("the ModelwEmb wrapper (CoMatch / triplet)")
+        return ModelwEmb(backbone, num_classes, int(config.MODEL.LOW_DIM))
     if not is_none(config.MODEL.MARGIN):
         raise _not_ported("the bias-free margin head")
-    backbone = create_backbone(config.MODEL.NAME)
-    head = LinearHead(backbone.num_features, int(config.MODEL.NUM_CLASSES))
-    return ClassifierHead(backbone, head)
+    return ClassifierHead(backbone, build_head(backbone.num_features,
+                                               num_classes))

@@ -9,7 +9,11 @@ JAX module's conventions are kept so weights carry across unchanged:
 - the stem max-pool pads by 1;
 - flax BN ``momentum=0.9`` is torch ``momentum=0.1``, ``eps=1e-5``, and
   the train-mode running variance follows the biased batch variance, as
-  flax's does (:func:`_flax_running_var`);
+  flax's does (:func:`_flax_running_var`, for 2-D and 1-D BN alike);
+- fresh weights are drawn as flax draws them: every convolution and dense
+  kernel from ``lecun_normal`` (a normal truncated at two standard
+  deviations, scaled to variance 1 / fan_in), biases zero, BN scale 1 and
+  offset 0 (:func:`conv2d`, :func:`dense`, which the heads use too);
 - the pooled features come back in float32.
 
 Torch is NCHW; on the card the caller moves the model and its input to
@@ -25,10 +29,42 @@ from typing import Sequence
 import torch
 from torch import nn
 
+# the standard deviation of a standard normal truncated to [-2, 2], which
+# flax's truncated ``variance_scaling`` divides by
+_TRUNC_STD = 0.87962566103423978
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` that notes, in train mode, its input's count per
-    channel ``n = N·H·W``, for :func:`_flax_running_var`."""
+
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's ``lecun_normal`` in place, for torch's ``(out, in, ...)``
+    layouts: fan_in is one output's element count, the draw a normal of
+    std ``sqrt(1 / fan_in) / 0.8796`` truncated at two of its std."""
+    std = (1.0 / weight[0].numel()) ** 0.5 / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def conv2d(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+           padding: int = 0) -> nn.Conv2d:
+    """A bias-free convolution with flax's initial kernel."""
+    conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding,
+                     bias=False)
+    lecun_normal_(conv.weight)
+    return conv
+
+
+def dense(in_features: int, out_features: int, bias: bool = True
+          ) -> nn.Linear:
+    """``nn.Linear`` with flax ``nn.Dense``'s initial kernel and zero bias."""
+    fc = nn.Linear(in_features, out_features, bias=bias)
+    lecun_normal_(fc.weight)
+    if bias:
+        nn.init.zeros_(fc.bias)
+    return fc
+
+
+class _NotesCount:
+    """A BN that notes, in train mode, its input's count per channel (``n =
+    N·H·W``, or ``N`` for 1-D), for :func:`_flax_running_var`."""
 
     count = 0
 
@@ -38,9 +74,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         return super().forward(x)
 
 
+class BatchNorm2d(_NotesCount, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_NotesCount, nn.BatchNorm1d):
+    pass
+
+
 def _flax_running_var(model: nn.Module, forward, x: torch.Tensor):
-    """``forward(x)`` with every train-mode BN's running variance moved as
-    flax moves it.
+    """``forward(x)`` with the running variance of every train-mode BN of
+    ``model`` (2-D or 1-D) moved as flax moves it.
 
     flax moves ``var`` toward the *biased* batch variance, torch toward the
     unbiased one (a factor n / (n - 1)). torch's fused BN runs as it is;
@@ -49,7 +93,7 @@ def _flax_running_var(model: nn.Module, forward, x: torch.Tensor):
     value. The second pass writes through ``.data``: autograd saved the
     buffers for the backward, which in train mode does not read them.
     """
-    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)
+    bns = [m for m in model.modules() if isinstance(m, _NotesCount)
            and m.training and m.track_running_stats]
     if not bns:
         return forward(x)
@@ -73,18 +117,17 @@ class Bottleneck(nn.Module):
     def __init__(self, in_ch: int, filters: int, stride: int = 1):
         super().__init__()
         out_ch = filters * self.expansion
-        self.conv1 = nn.Conv2d(in_ch, filters, 1, bias=False)
+        self.conv1 = conv2d(in_ch, filters, 1)
         self.bn1 = _bn(filters)
-        self.conv2 = nn.Conv2d(filters, filters, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = conv2d(filters, filters, 3, stride=stride, padding=1)
         self.bn2 = _bn(filters)
-        self.conv3 = nn.Conv2d(filters, out_ch, 1, bias=False)
+        self.conv3 = conv2d(filters, out_ch, 1)
         self.bn3 = _bn(out_ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if in_ch != out_ch or stride != 1:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
+                conv2d(in_ch, out_ch, 1, stride=stride),
                 _bn(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,8 +146,7 @@ class ResNet(nn.Module):
                  num_filters: int = 64):
         super().__init__()
         self.stage_sizes = tuple(int(s) for s in stage_sizes)
-        self.conv1 = nn.Conv2d(3, num_filters, 7, stride=2, padding=3,
-                               bias=False)
+        self.conv1 = conv2d(3, num_filters, 7, stride=2, padding=3)
         self.bn1 = _bn(num_filters)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)

@@ -25,7 +25,7 @@ The trainer protocol is the reference's: ``__init__(model, opt_func)`` →
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -37,8 +37,8 @@ from endoscopy_tpu_torch.ckpt.convert import train_state_from_npz
 from endoscopy_tpu_torch.device import resolve_device, resolve_dtype
 from endoscopy_tpu_torch.eval.metrics import calculate_metrics, confusion_matrix
 from endoscopy_tpu_torch.losses import balanced_class_weights, cross_entropy
-from endoscopy_tpu_torch.optim import build_optimizer, build_schedule
-from endoscopy_tpu_torch.ssl_state.ema import ema_init
+from endoscopy_tpu_torch.optim import build_optimizer, build_schedule, set_lr
+from endoscopy_tpu_torch.ssl_state.ema import ema_init, ema_update
 from endoscopy_tpu_torch.train import preempt
 from endoscopy_tpu_torch.train.state import TrainState
 from endoscopy_tpu_torch.utils.logging import MetricLogger, Throughput
@@ -131,6 +131,48 @@ class BaseTrainer:
             ema=ema_init(model) if self.use_ema else None)
         self.grad_mask = trainable_mask(model,
                                         bool(self.config.TRAIN.IS_FREEZE))
+
+    # -- the update ---------------------------------------------------------
+
+    def _apply_grads(self) -> None:
+        """The freeze mask, the optimizer at the scheduled learning rate
+        (the schedule at the count before this update), then the EMA over
+        the updated parameters and BN statistics."""
+        st = self.state
+        mask_grads(st.model, self.grad_mask)
+        set_lr(st.optimizer, self.lr_schedule(st.step))
+        st.optimizer.step()
+        st.step += 1
+        if st.ema is not None:
+            ema_update(st.ema, st.model, self.ema_decay)
+
+    def _accumulate(self, micro: Iterable[tuple], forward_backward
+                    ) -> torch.Tensor:
+        """``forward_backward(*m)`` over each microbatch ``m`` (gradients
+        add into ``.grad``, BN running statistics thread through), then
+        one update on the mean gradient. Returns the mean of the detached
+        statistics ``forward_backward`` returns."""
+        st = self.state
+        st.model.train()
+        st.optimizer.zero_grad(set_to_none=True)
+        total, count = None, 0
+        for m in micro:
+            stats = forward_backward(*m)
+            total = stats if total is None else total + stats
+            count += 1
+        if count > 1:
+            grads = [p.grad for p in st.model.parameters()
+                     if p.grad is not None]
+            torch._foreach_div_(grads, float(count))
+            total = total / count
+        # a parameter outside the loss (ModelwEmb's projection in the
+        # triplet branch) gets a zero gradient, as under optax, so weight
+        # decay, momentum and Adam's moments still move it
+        for p in st.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self._apply_grads()
+        return total
 
     @staticmethod
     def _drain_pending(pending: list, summary_loss, batch_size: int,
@@ -285,33 +327,58 @@ class BaseTrainer:
             return bs * (1 + 2 * int(self.config.DATA.MU))
         return bs
 
+    def _evaluated_resume(self) -> bool:
+        """A resume at the final epoch only evaluates: True when this was
+        one and the evaluation ran."""
+        if not (self._resumed
+                and self.epoch_start == int(self.config.TRAIN.EPOCHS)):
+            return False
+        valid_loss, valid_metric = self.evaluate_one()
+        print(f"\tValid Loss: {valid_loss.avg:.3f}")
+        print(f"\tMetric: {valid_metric}")
+        return True
+
+    def _train_epoch(self, epoch: int, tput: Throughput,
+                     logger: MetricLogger) -> AverageMeter:
+        """``train_one(epoch)``, timed over the steps it takes (the
+        supervised trainer's ``n_iter_per_epoch``, else ``EVAL_STEP``);
+        logs the train loss, images/s and the epoch's seconds."""
+        self.epoch = epoch
+        tput.reset()
+        t0 = time.perf_counter()
+        train_loss = self.train_one(epoch)
+        epoch_s = time.perf_counter() - t0
+        tput.step(getattr(self, "n_iter_per_epoch",
+                          int(self.config.TRAIN.EVAL_STEP)))
+        imgs_per_sec = tput.images_per_sec
+        print(f"\tTrain Loss: {train_loss.avg:.3f} | {imgs_per_sec:.0f} img/s")
+        logger.log({"loss/train": train_loss.avg,
+                    "throughput/images_per_sec": imgs_per_sec,
+                    "time/epoch_s": epoch_s}, epoch=epoch)
+        return train_loss
+
+    @staticmethod
+    def _log_valid(logger: MetricLogger, epoch: int, valid_loss,
+                   valid_metric) -> None:
+        print(f"\tValid Loss: {valid_loss.avg:.3f}")
+        print(f"\tMetric: { {k: v for k, v in valid_metric.items() if k != 'sen/spec'} }")
+        logger.log({"loss/valid": valid_loss.avg,
+                    "metric/macro_f1": float(valid_metric["macro/f1"])},
+                   epoch=epoch)
+
     def fit(self) -> None:
         """Train from ``epoch_start`` to ``TRAIN.EPOCHS``, evaluating and
         saving every ``FREQ_EVAL`` epochs. A resume at the final epoch only
         evaluates."""
-        logger = self._metric_logger()
-        epochs = int(self.config.TRAIN.EPOCHS)
-        if self._resumed and self.epoch_start == epochs:
-            valid_loss, valid_metric = self.evaluate_one()
-            print(f"\tValid Loss: {valid_loss.avg:.3f}")
-            print(f"\tMetric: {valid_metric}")
+        if self._evaluated_resume():
             return
+        logger = self._metric_logger()
         tput = Throughput(self._images_per_step())
-        for epoch in range(self.epoch_start, epochs + 1):
-            self.epoch = epoch
+        for epoch in range(self.epoch_start, int(self.config.TRAIN.EPOCHS) + 1):
             best = (f"{float(self.best_valid_perf):.3f}"
                     if self.best_valid_perf is not None else "inf")
             print(f"Training epoch: {epoch} | The best loss: {best}")
-            tput.reset()
-            t0 = time.perf_counter()
-            train_loss = self.train_one(epoch)
-            epoch_s = time.perf_counter() - t0
-            tput.step(int(self.config.TRAIN.EVAL_STEP))
-            imgs_per_sec = tput.images_per_sec
-            print(f"\tTrain Loss: {train_loss.avg:.3f} | {imgs_per_sec:.0f} img/s")
-            logger.log({"loss/train": train_loss.avg,
-                        "throughput/images_per_sec": imgs_per_sec,
-                        "time/epoch_s": epoch_s}, epoch=epoch)
+            self._train_epoch(epoch, tput, logger)
             saved_this_epoch = False
             if epoch % int(self.config.TRAIN.FREQ_EVAL) == 0:
                 valid_loss, valid_metric = self.evaluate_one()
@@ -321,10 +388,6 @@ class BaseTrainer:
                 if self.config.TRAIN.get("SAVE_CP"):
                     self.save_checkpoint(self.config.TRAIN.SAVE_CP)
                     saved_this_epoch = True
-                print(f"\tValid Loss: {valid_loss.avg:.3f}")
-                print(f"\tMetric: { {k: v for k, v in valid_metric.items() if k != 'sen/spec'} }")
-                logger.log({"loss/valid": valid_loss.avg,
-                            "metric/macro_f1": float(valid_metric["macro/f1"])},
-                           epoch=epoch)
+                self._log_valid(logger, epoch, valid_loss, valid_metric)
             if self._preempt_break(epoch, saved_this_epoch):
                 break

@@ -13,11 +13,11 @@ with its own views; BN running statistics thread through them, gradients
 sum in float32 and are divided by the count, loss and aux are averaged,
 and one optimizer and EMA update follows (the step count moves by one).
 
-Two settings of the reference have no counterpart here:
-``TRAIN.STEPS_PER_CALL`` amortizes the JAX package's dispatch with a
-``lax.scan`` over steps, which eager PyTorch has no use for, so it is
-ignored; and the dropout key has no consumer in a ResNet with a linear
-head, so no dropout draw is made.
+``TRAIN.STEPS_PER_CALL`` has no counterpart here: it amortizes the JAX
+package's dispatch with a ``lax.scan`` over steps, which eager PyTorch has
+no use for, so it is ignored. The forward hands the trainer's generator to
+the model, whose MLP head (``ModelwEmb``) draws its dropout from it; a
+linear head makes no draw.
 """
 
 from __future__ import annotations
@@ -29,10 +29,7 @@ import torch
 
 from endoscopy_tpu_torch.aug.views import fixmatch_views, labeled_train_view
 from endoscopy_tpu_torch.losses import ce_loss, consistency_loss
-from endoscopy_tpu_torch.optim import set_lr
-from endoscopy_tpu_torch.ssl_state.ema import ema_update
-from endoscopy_tpu_torch.train.common import (BaseTrainer, mask_grads,
-                                              model_logits)
+from endoscopy_tpu_torch.train.common import BaseTrainer, model_logits
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
 Micro = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -76,7 +73,7 @@ class FixMatch(BaseTrainer):
         inputs = torch.cat([x_lb, u_weak, u_strong]).permute(0, 3, 1, 2)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            out = model(inputs)
+            out = model(inputs, generator=self.generator)
         logits = model_logits(out)
         logits = logits.float()
         lx = ce_loss(logits[:bs_lb], targets, class_weights=weights,
@@ -88,37 +85,12 @@ class FixMatch(BaseTrainer):
         loss.backward()
         return torch.stack([loss, lx, lu, mask_mean]).detach()
 
-    def _apply_grads(self) -> None:
-        """The freeze mask, the optimizer at the scheduled learning rate
-        (the schedule at the count before this update), then the EMA over
-        the updated parameters and BN statistics."""
-        st = self.state
-        mask_grads(st.model, self.grad_mask)
-        set_lr(st.optimizer, self.lr_schedule(st.step))
-        st.optimizer.step()
-        st.step += 1
-        if st.ema is not None:
-            ema_update(st.ema, st.model, self.ema_decay)
-
     def _train_micro(self, micro: Iterable[Micro], weights):
         """Forward and backward over each microbatch, then one update on
         the mean gradient. Returns ``(loss, (lx, lu, mask_mean))``,
         device tensors averaged over the microbatches."""
-        st = self.state
-        st.model.train()
-        st.optimizer.zero_grad(set_to_none=True)
-        total, count = None, 0
-        for x_lb, u_weak, u_strong, targets in micro:
-            stats = self._forward_backward(x_lb, u_weak, u_strong, targets,
-                                           weights)
-            total = stats if total is None else total + stats
-            count += 1
-        if count > 1:
-            grads = [p.grad for p in st.model.parameters()
-                     if p.grad is not None]
-            torch._foreach_div_(grads, float(count))
-            total = total / count
-        self._apply_grads()
+        total = self._accumulate(((*m, weights) for m in micro),
+                                 self._forward_backward)
         return total[0], (total[1], total[2], total[3])
 
     def _train_core(self, x_lb, u_weak, u_strong, targets, weights):

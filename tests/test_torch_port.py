@@ -8,8 +8,10 @@ kernel wrapper against the Pallas kernel in interpret mode), ``views``,
 training step: losses, schedules, optimizers, EMA, BN statistics, the
 labeled view, one step, GRAD_ACCUM and IS_FREEZE), ``learn`` (``cli/learn.py``:
 manifests, loaders, metrics, evaluation, checkpoints, a JAX checkpoint's
-resume, transfer, ``fit`` and the CLI) and ``nojax`` (the import and
-device rules). This one test runs every case and reports every failure
+resume, transfer, ``fit`` and the CLI), ``supervised`` (the supervised
+trainer: fresh weights, checkpoint order, class weights, the triplet loss,
+the heads, Mixup/CutMix, its steps, ``fit``, the ``evaluate`` and
+``pseudo_label`` CLIs) and ``nojax`` (the import and device rules). This one test runs every case and reports every failure
 with its traceback. It is one test item so that the counts of the JAX
 suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
 within 2, stay the JAX suite's.
@@ -20,9 +22,9 @@ import traceback
 import torch
 
 from torch_port_checks import (learn, models, nojax, randaugment, serve,
-                               train, views)
+                               supervised, train, views)
 
-MODULES = (models, randaugment, views, serve, train, learn, nojax)
+MODULES = (models, randaugment, views, serve, train, learn, supervised, nojax)
 
 
 def _cases():

@@ -30,8 +30,10 @@ def test_kernel_matches_plain_on_card():
     and bf16 I/O, in plain mode, crop mode with pad = 0 and crop mode with
     pad > 0: the same pixels as the plain version, one launch counted per
     call. The sides take every cluster size (2, 4 and 8 blocks). Then a
-    strided input, a side above the kernel's limit, and one FixMatch
-    training step through the kernel on the card against the CPU."""
+    strided input, a side above the kernel's limit, one FixMatch training
+    step through the kernel on the card against the CPU, and one
+    supervised step of each branch (no kernel) on the card against the
+    CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernel has no CPU mode")
     ext = tk.build()
@@ -43,6 +45,7 @@ def test_kernel_matches_plain_on_card():
     _strided_input_is_read_through_its_strides()
     _side_above_the_limit_raises()
     _resnet_tiny_step_matches_cpu()
+    _resnet_tiny_supervised_steps_match_cpu()
 
 
 def _forced_case(side, mode, dtype, seed=0):
@@ -153,3 +156,38 @@ def _resnet_tiny_step_matches_cpu():
         assert abs(a - b) <= 1e-4 * abs(b), (got, ref)
     l2, _ = cs.update_errors(upd, ref_upd)
     assert l2 <= 0.1, l2
+
+
+def _resnet_tiny_supervised_steps_match_cpu():
+    """One supervised SGD step of resnet_tiny (32 px, B=4, float32 with
+    TF32 off), plain and triplet (12 images through ``ModelwEmb``, its
+    dropout drawn from the same CPU generator), from the same weights,
+    view and draws through path E's helpers
+    (``torch_port_checks/path_e.py``), on the card and on the CPU: losses
+    and triplet distances within 1e-4
+    relative, the SGD updates within 0.1 relative L2 (the FixMatch step's
+    bounds, for the same reason)."""
+    from torch_port_checks import path_c as cs
+    from torch_port_checks import path_e
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for base, triplet in ((path_e.PATHO, False), (path_e.EZBM, True)):
+            cfg = path_e.step_config(base, triplet, img=32,
+                                     NAME="resnet_tiny")
+            model = cs.seeded_model(cfg, 0, cs.HEAD_STD)
+            x, t = path_e.step_batch(cfg, 0)
+            view = path_e.step_view(cfg, (x, t), 0, "cuda")
+            ref, ref_upd = path_e.step_once(cfg, model, view, t, "cpu", 0)
+            got, upd = path_e.step_once(cfg, model, view, t, "cuda", 0)
+            assert len(got) == len(ref) == (3 if triplet else 1)
+            for a, b in zip(got, ref):
+                assert abs(a - b) <= 1e-4 * abs(b), (triplet, got, ref)
+            l2, _ = cs.update_errors(upd, ref_upd)
+            assert l2 <= 0.1, (triplet, l2)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags

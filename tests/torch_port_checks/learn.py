@@ -643,13 +643,12 @@ def check_learn_cli_runs_both_stages_like_jax():
     with tempfile.TemporaryDirectory() as tmp:
         port_cfgs = _write_stage_configs(tmp, "port")
         env = dict(os.environ, PYTHONPATH=str(ROOT))
-        proc = subprocess.run(
+        # the port's CLI runs in its own process while the JAX one runs here
+        proc = subprocess.Popen(
             [sys.executable, "-m", "endoscopy_tpu_torch.cli.learn",
              "--config-1", port_cfgs[0], "--config-2", port_cfgs[1],
-             "--device", "cpu"], cwd=tmp, env=env, capture_output=True,
-            text=True, timeout=600)
-        assert proc.returncode == 0, proc.stderr[-3000:]
-        assert "=== stage 1 | IMG_SIZE=40 ===" in proc.stdout
+             "--device", "cpu"], cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
 
         jax_cfgs = _write_stage_configs(tmp, "jax")
 
@@ -669,8 +668,14 @@ def check_learn_cli_runs_both_stages_like_jax():
                 jax_learn.main(["--config-1", jax_cfgs[0],
                                 "--config-2", jax_cfgs[1]])
             jax_orbax_io.wait_until_finished()
+            out, err = proc.communicate(timeout=600)
         finally:
             signal.signal(signal.SIGTERM, handler)
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        assert proc.returncode == 0, err[-3000:]
+        assert "=== stage 1 | IMG_SIZE=40 ===" in out
         port_root, jax_root = Path(tmp, "port"), Path(tmp, "jax")
         assert _tree(port_root) == _tree(jax_root) == {
             "stage0/epoch_1", "stage0/epoch_2", "stage1/epoch_1"}

@@ -2,7 +2,7 @@
 
 The import check runs in a fresh interpreter, so what the test process
 itself has imported cannot hide a leak. It covers every module of the
-package and ``tests/torch_port_checks/path_{c,d}.py``, which
+package and ``tests/torch_port_checks/path_{c,d,e}.py``, which
 ``chip_smoke.py`` runs on the card's machine: no JAX and nothing of
 ``endoscopy_tpu``, and none of what that machine lacks (pandas, cv2, PIL,
 PyYAML) at import time. ``chip_smoke.py`` itself is read, not run: no
@@ -30,6 +30,7 @@ from endoscopy_tpu_torch.config.loader import default_config
 from endoscopy_tpu_torch.serve import export, server
 from endoscopy_tpu_torch.train.common import BaseTrainer
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
+from endoscopy_tpu_torch.train.supervised import SupLearning
 from torch_port_checks import path_d
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -50,10 +51,17 @@ NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "endoscopy_tpu",
 
 
 def check_package_imports_no_jax():
-    mods = _modules() + ["torch_port_checks.path_c", "torch_port_checks.path_d"]
+    mods = _modules() + ["torch_port_checks.path_c", "torch_port_checks.path_d",
+                         "torch_port_checks.path_e"]
     assert {"endoscopy_tpu_torch.ops.randaugment_kernel",
             "endoscopy_tpu_torch.cli.learn",
-            "endoscopy_tpu_torch.ckpt.io"} <= set(mods)
+            "endoscopy_tpu_torch.ckpt.io",
+            "endoscopy_tpu_torch.train.supervised",
+            "endoscopy_tpu_torch.models.modelwemb",
+            "endoscopy_tpu_torch.aug.mixup",
+            "endoscopy_tpu_torch.losses.triplet",
+            "endoscopy_tpu_torch.cli.evaluate",
+            "endoscopy_tpu_torch.cli.pseudo_label"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -92,8 +100,24 @@ def check_entry_points_need_cuda_unless_cpu_is_asked():
         for entry in ("resolve_device", "eval_view", "fixmatch_views",
                       "labeled_train_view", "make_infer_fn", "load_exported",
                       "make_server", "FixMatch", "BaseTrainer",
-                      "prepare_trainer", "restore_checkpoint"):
+                      "SupLearning", "prepare_trainer", "restore_checkpoint"):
             _entry_needs_cuda(Path(tmp), entry)
+        _clis_need_cuda(Path(tmp))
+
+
+def _clis_need_cuda(tmp_path):
+    """``cli/evaluate.py`` and ``cli/pseudo_label.py`` without
+    ``--device`` raise before they read a file (``supervised.py`` runs
+    both with ``--device cpu``)."""
+    from endoscopy_tpu_torch.cli import evaluate, pseudo_label
+
+    cfg = tmp_path / "sup.yaml"
+    cfg.write_text("MODEL:\n  NAME: resnet_tiny\nTRAIN:\n  IS_SSL: False\n")
+    for main, extra in ((evaluate.main, []),
+                        (pseudo_label.main, ["--unlabeled-csv", "u.csv",
+                                             "--out", "o.csv"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--config", str(cfg), "--checkpoint", "ck", *extra])
 
 
 def _entry_needs_cuda(tmp_path, entry):
@@ -121,6 +145,7 @@ def _entry_needs_cuda(tmp_path, entry):
             path, host="127.0.0.1", port=0, buckets=(1,), warmup=False,
             **kw).server_close(),
         "FixMatch": lambda **kw: FixMatch(model, "Adam", **kw),
+        "SupLearning": lambda **kw: SupLearning(model, "Adam", **kw),
         "BaseTrainer": lambda **kw: BaseTrainer(model, "Adam", **kw),
         # what cli/learn.py's run_config runs before fit, and --device
         "prepare_trainer": lambda **kw: learn.prepare_trainer(

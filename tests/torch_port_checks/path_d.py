@@ -77,10 +77,13 @@ def make_images(rng: np.random.Generator, classes: np.ndarray, size: int
 
 def array_loader(base, images: np.ndarray):
     """``base`` (``CanonicalLoader`` or ``EvalLoader``) reading row
-    ``path`` of ``images`` in place of decoding a file."""
+    ``path`` of ``images`` (kept as ``images``) in place of decoding a
+    file."""
     class ArrayLoader(base):
         def decode(self, paths) -> np.ndarray:
             return images[np.asarray(paths, np.int64)]
+
+    ArrayLoader.images = images
 
     return ArrayLoader
 
@@ -88,7 +91,8 @@ def array_loader(base, images: np.ndarray):
 def synthetic_data(config, sizes, seed: int):
     """What ``cli/learn.py::build_data`` returns for ``config``, from
     seeded images: labeled and valid classes in turn (balanced), unlabeled
-    classes drawn at random, at the config's canonical size."""
+    classes drawn at random (kept as the unlabeled loader's ``classes``;
+    its manifest's targets are 0), at the config's canonical size."""
     rng = np.random.default_rng(seed)
     n_cls = int(config.MODEL.NUM_CLASSES)
     n_lab, n_unl, n_valid = sizes
@@ -96,15 +100,18 @@ def synthetic_data(config, sizes, seed: int):
     split = {"labeled": np.arange(n_lab) % n_cls,
              "unlabeled": rng.integers(0, n_cls, n_unl),
              "valid": np.arange(n_valid) % n_cls}
-    manifests = {k: Manifest(paths=np.arange(len(t)), targets=t)
+    # unlabeled rows carry no label (a copy: the images keep their class)
+    manifests = {k: Manifest(paths=np.arange(len(t)),
+                             targets=np.zeros_like(t) if k == "unlabeled"
+                             else t)
                  for k, t in split.items()}
-    manifests["unlabeled"].targets[:] = 0  # unlabeled rows carry no label
     images = {k: make_images(rng, t, size) for k, t in split.items()}
     bs = int(config.DATA.BATCH_SIZE)
     lab = array_loader(CanonicalLoader, images["labeled"])(
         manifests["labeled"], bs, size, seed=0)
     unl = array_loader(CanonicalLoader, images["unlabeled"])(
         manifests["unlabeled"], bs * int(config.DATA.MU), size, seed=1)
+    unl.classes = split["unlabeled"]
     valid = array_loader(EvalLoader, images["valid"])(
         manifests["valid"], bs, size)
     labeled = manifests["labeled"].targets

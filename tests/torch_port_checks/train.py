@@ -355,15 +355,22 @@ def check_labeled_view_matches_jax():
 # -- the step ---------------------------------------------------------------
 
 
+@functools.partial(jax.jit, static_argnums=0, static_argnames="train")
+def _module_init(model, key, x, train=False):
+    return model.init(key, x, train=train)
+
+
 class _JitInit:
     """The model for ``create_train_state`` with ``init`` compiled: run
-    eagerly, op by op, flax's init takes some 15 s of this test."""
+    eagerly, op by op, flax's init takes some 15 s of this test. Flax
+    modules hash by their fields, so every trainer of one architecture
+    (the CLI checks build several) shares one compiled init."""
 
     def __init__(self, model):
         self.model = model
 
     def init(self, key, x, **kw):
-        return jax.jit(functools.partial(self.model.init, **kw))(key, x)
+        return _module_init(self.model, key, x, **kw)
 
 
 @functools.cache
@@ -446,8 +453,13 @@ def _compare_step(port, jax_out, got, opt, frozen=(), start=None):
                           ("loss", "lx", "lu", "mask_mean")):
         _close(float(g), float(w), rtol=1e-5, what=name)
     assert 0.0 < float(got[1][2]) < 1.0
-    start = _jax_base().state if start is None else start
-    assert port.state.step == int(jstate.step) == int(start.step) + 1
+    _compare_state(port, jstate, opt, frozen,
+                   _jax_base().state if start is None else start)
+
+
+def _compare_state(port, jstate, opt, frozen, start):
+    """Parameters, BN statistics and EMA after one step from the JAX
+    state ``start``, at ``_compare_step``'s bounds."""
     init = _port_state(start.params, start.batch_stats)
     want = _port_state(jstate.params, jstate.batch_stats)
     now = port.state.model.state_dict()

@@ -7,11 +7,11 @@
 ``meta.json``). The ``.npz`` holds the whole train state as flat keys:
 ``step``; the trees ``params``, ``batch_stats``, ``ema_params`` and
 ``ema_batch_stats`` (when the run kept an EMA); optax Adam's state as
-``adam/mu``, ``adam/nu`` and ``adam/count``; and ``meta``, the
-``meta.json`` text. The port reads it with
-``endoscopy_tpu_torch/ckpt/convert.py::train_state_from_npz``, and
+``adam/mu``, ``adam/nu`` and ``adam/count``, or SGD's Nesterov momentum
+as ``sgd/trace``; and ``meta``, the ``meta.json`` text. The port reads it
+with ``endoscopy_tpu_torch/ckpt/convert.py::train_state_from_npz``, and
 ``BaseTrainer.load_checkpoint`` and ``MODEL.PRE_TRAIN_RESUME`` take it in
-place of a checkpoint directory. Only Adam and AdamW states map onto the
+place of a checkpoint directory. Adam, AdamW and SGD states map onto the
 port's optimizer; another optimizer's state raises.
 
 The one file of the port's tooling that imports JAX (and orbax): it runs
@@ -44,16 +44,17 @@ def _restore_numpy(state_dir: str):
                              args=ocp.args.PyTreeRestore(restore_args=args))
 
 
-def _adam_state(opt_state):
-    """The ``ScaleByAdamState`` node (``count``, ``mu``, ``nu``) of an optax
-    chain, however orbax laid the chain out."""
+def _find(opt_state, keys):
+    """The first node of an optax chain's state whose fields include
+    ``keys`` (``ScaleByAdamState``: count, mu, nu; ``TraceState``: trace),
+    however orbax laid the chain out."""
     if isinstance(opt_state, dict):
-        if {"mu", "nu", "count"} <= set(opt_state):
+        if set(keys) <= set(opt_state):
             return opt_state
         opt_state = opt_state.values()
     for node in opt_state:
         if isinstance(node, (dict, list, tuple)):
-            found = _adam_state(node)
+            found = _find(node, keys)
             if found is not None:
                 return found
     return None
@@ -74,18 +75,23 @@ def orbax_to_npz(ckpt_dir: str, out_path: str) -> dict:
     state = _restore_numpy(os.path.join(ckpt_dir, "state"))
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
-    adam = _adam_state(state["opt_state"])
-    if adam is None:
-        raise ValueError(f"{ckpt_dir}: the optimizer state has no Adam "
-                         "moments (only Adam/AdamW map onto the port)")
+    adam = _find(state["opt_state"], ("mu", "nu", "count"))
+    sgd = _find(state["opt_state"], ("trace",))
+    if adam is None and sgd is None:
+        raise ValueError(f"{ckpt_dir}: the optimizer state has neither Adam "
+                         "moments nor an SGD trace (only Adam, AdamW and "
+                         "SGD map onto the port)")
     flat = {"step": np.asarray(state["step"]),
-            "meta": np.asarray(json.dumps(meta)),
-            "adam/count": np.asarray(adam["count"])}
+            "meta": np.asarray(json.dumps(meta))}
     for root in ("params", "batch_stats", "ema_params", "ema_batch_stats"):
         if state.get(root) is not None:
             _flatten(state[root], root, flat)
-    _flatten(adam["mu"], "adam/mu", flat)
-    _flatten(adam["nu"], "adam/nu", flat)
+    if adam is not None:
+        flat["adam/count"] = np.asarray(adam["count"])
+        _flatten(adam["mu"], "adam/mu", flat)
+        _flatten(adam["nu"], "adam/nu", flat)
+    else:
+        _flatten(sgd["trace"], "sgd/trace", flat)
     np.savez(out_path, **flat)
     return meta
 
