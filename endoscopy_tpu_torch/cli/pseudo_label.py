@@ -10,16 +10,14 @@ The second stage of the real-SSL pipeline: a trained classifier (the
 binary abnormal one) runs ``BaseTrainer.inference`` over the pool, giving
 ``pred = argmax · [max_prob > THRES]`` per image; the written CSV (the
 input's columns and ``pred``) is the ``DATA.UNANNO`` of the real-SSL
-configs, which train on its ``pred == 1`` rows. :func:`pseudo_label` does
-the work on a configured trainer and a loader; :func:`main` builds them
-from the CSVs (pandas and cv2 are imported there only).
+configs, which train on its ``pred == 1`` rows. ``inference`` does the
+work on a configured trainer and a loader; :func:`main` builds them from
+the CSVs (pandas and cv2 are imported there only).
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import List
-
 from endoscopy_tpu_torch.config.loader import get_config
 from endoscopy_tpu_torch.data.manifest import (Manifest,
                                                build_supervised_manifests)
@@ -27,13 +25,6 @@ from endoscopy_tpu_torch.data.pipeline import (CanonicalLoader, EvalLoader,
                                                canonical_size)
 from endoscopy_tpu_torch.models import build_model
 from endoscopy_tpu_torch.train.supervised import SupLearning
-
-
-def pseudo_label(trainer, unlabeled_dl) -> List[int]:
-    """The trainer's thresholded prediction for each row of the loader, in
-    the loader's order."""
-    preds = trainer.inference(unlabeled_dl)
-    return [preds[i] for i in range(len(preds))]
 
 
 def main(argv=None) -> None:
@@ -69,8 +60,8 @@ def main(argv=None) -> None:
     unl_m = Manifest.from_df(df_unl, root, config.DATA.INPUT_NAME,
                              target_name=None)
     df_unl = df_unl.copy()
-    df_unl["pred"] = pseudo_label(trainer,
-                                  EvalLoader(unl_m, bs, size, cache=False))
+    df_unl["pred"] = list(trainer.inference(
+        EvalLoader(unl_m, bs, size, cache=False)).values())
     df_unl.to_csv(args.out, index=False)
     kept = int((df_unl["pred"] == 1).sum())
     print(f"wrote {args.out}: {kept}/{len(df_unl)} rows pass pred==1")

@@ -8,10 +8,10 @@ Heads run in float32 with autocast off, as the flax heads do (their
 ``dtype`` is float32) while the backbone computes in bf16. Their kernels
 start from flax's initializer (``models/resnet.py::dense``).
 
-The MLP head's dropout takes its keep-mask from the caller (``keep_mask``,
-the checks pass the JAX package's) or draws it from the caller's
-``generator`` (the trainer's, on its device); its BN keeps flax's running
-variance (``models/resnet.py::_flax_running_var``).
+The MLP head's dropout draws from its ``generator`` (the trainer sets its
+own, on its device) unless ``keep_mask`` is set (the checks set the JAX
+package's); its BN keeps flax's running variance
+(``models/resnet.py::_flax_running_var``).
 """
 
 from __future__ import annotations
@@ -34,8 +34,7 @@ class LinearHead(nn.Module):
         super().__init__()
         self.fc = dense(in_features, out_features)
 
-    def forward(self, x: torch.Tensor, keep_mask=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(x)
 
 
@@ -48,19 +47,20 @@ class MLPHead(nn.Module):
         self.fc1 = dense(in_features, in_features // 4)
         self.bn = BatchNorm1d(in_features // 4, eps=1e-5, momentum=0.1)
         self.fc2 = dense(in_features // 4, out_features)
+        self.generator: Optional[torch.Generator] = None
+        self.keep_mask: Optional[torch.Tensor] = None
 
     def _after_dropout(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.bn(x))
 
-    def forward(self, x: torch.Tensor, keep_mask=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.fc1(x))
         if not self.training:
             return self._after_dropout(x)
+        keep_mask, g = self.keep_mask, self.generator
         if keep_mask is None:
-            dev = x.device if generator is None else generator.device
-            keep_mask = torch.rand(x.shape, generator=generator,
-                                   device=dev) < KEEP
+            keep_mask = torch.rand(x.shape, generator=g, device=(
+                x.device if g is None else g.device)) < KEEP
         x = torch.where(torch.as_tensor(keep_mask, device=x.device),
                         x / KEEP, torch.zeros_like(x))
         return _flax_running_var(self, self._after_dropout, x)
@@ -82,8 +82,7 @@ class ClassifierHead(nn.Module):
         self.backbone = backbone
         self.head = head
 
-    def forward(self, x: torch.Tensor, keep_mask=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         fts = self.backbone(x)
         with torch.autocast(device_type=fts.device.type, enabled=False):
-            return self.head(fts.float(), keep_mask, generator)
+            return self.head(fts.float())

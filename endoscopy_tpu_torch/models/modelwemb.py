@@ -11,7 +11,7 @@ will CoMatch and EZBM.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,8 +41,8 @@ class ProjectionHead(nn.Module):
 
 
 class ModelwEmb(nn.Module):
-    """The ``(logits, fts, fts_low)`` model. ``keep_mask``/``generator``
-    go to the MLP head's dropout (see ``models/heads.py``)."""
+    """The ``(logits, fts, fts_low)`` model; ``fc`` is the MLP head, whose
+    dropout draws from its ``generator`` (see ``models/heads.py``)."""
 
     def __init__(self, backbone: nn.Module, num_classes: int,
                  low_dim: int = 128):
@@ -51,21 +51,18 @@ class ModelwEmb(nn.Module):
         self.fc = MLPHead(backbone.num_features, num_classes)
         self.head_emb = ProjectionHead(backbone.num_features, low_dim)
 
-    def forward(self, x: torch.Tensor, keep_mask=None,
-                generator: Optional[torch.Generator] = None
+    def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         fts = self.features(x)
         with torch.autocast(device_type=fts.device.type, enabled=False):
-            logits = self.fc(fts, keep_mask, generator)
+            logits = self.fc(fts)
             return logits, fts, self.head_emb(fts)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """Pooled float32 backbone features."""
         return self.backbone(x).float()
 
-    def classify_features(self, fts: torch.Tensor, keep_mask=None,
-                          generator: Optional[torch.Generator] = None
-                          ) -> torch.Tensor:
+    def classify_features(self, fts: torch.Tensor) -> torch.Tensor:
         """The MLP head on given features (EZBM's stage 2)."""
         with torch.autocast(device_type=fts.device.type, enabled=False):
-            return self.fc(fts.float(), keep_mask, generator)
+            return self.fc(fts.float())

@@ -37,6 +37,7 @@ from endoscopy_tpu_torch.ckpt.convert import train_state_from_npz
 from endoscopy_tpu_torch.device import resolve_device, resolve_dtype
 from endoscopy_tpu_torch.eval.metrics import calculate_metrics, confusion_matrix
 from endoscopy_tpu_torch.losses import balanced_class_weights, cross_entropy
+from endoscopy_tpu_torch.models.heads import MLPHead
 from endoscopy_tpu_torch.optim import build_optimizer, build_schedule, set_lr
 from endoscopy_tpu_torch.ssl_state.ema import ema_init, ema_update
 from endoscopy_tpu_torch.train import preempt
@@ -120,7 +121,8 @@ class BaseTrainer:
 
     def _init_state(self) -> None:
         """The model on the device, its optimizer (built with the
-        schedule's ``lr(0)``), the EMA copy and the freeze mask."""
+        schedule's ``lr(0)``), the EMA copy, the freeze mask, and the
+        trainer's generator on every head that draws dropout."""
         model = self.model.to(self.device)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
@@ -131,6 +133,9 @@ class BaseTrainer:
             ema=ema_init(model) if self.use_ema else None)
         self.grad_mask = trainable_mask(model,
                                         bool(self.config.TRAIN.IS_FREEZE))
+        for m in model.modules():
+            if isinstance(m, MLPHead):
+                m.generator = self.generator
 
     # -- the update ---------------------------------------------------------
 

@@ -15,8 +15,8 @@ and one optimizer and EMA update follows (the step count moves by one).
 
 ``TRAIN.STEPS_PER_CALL`` has no counterpart here: it amortizes the JAX
 package's dispatch with a ``lax.scan`` over steps, which eager PyTorch has
-no use for, so it is ignored. The forward hands the trainer's generator to
-the model, whose MLP head (``ModelwEmb``) draws its dropout from it; a
+no use for, so it is ignored. An MLP head (``ModelwEmb``) draws its
+dropout from the trainer's generator (``BaseTrainer._init_state``); a
 linear head makes no draw.
 """
 
@@ -73,7 +73,7 @@ class FixMatch(BaseTrainer):
         inputs = torch.cat([x_lb, u_weak, u_strong]).permute(0, 3, 1, 2)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            out = model(inputs, generator=self.generator)
+            out = model(inputs)
         logits = model_logits(out)
         logits = logits.float()
         lx = ce_loss(logits[:bs_lb], targets, class_weights=weights,

@@ -89,20 +89,18 @@ class SupLearning(BaseTrainer):
 
     # -- the step ----------------------------------------------------------
 
-    def _forward_backward(self, x, targets, weights, keep_mask=None,
+    def _forward_backward(self, x, targets, weights,
                           mix_draws=None) -> torch.Tensor:
         """One forward of the view ``x`` (NHWC), the active branch's loss
-        and the backward; gradients add into ``.grad``. ``keep_mask`` (the
-        MLP head's dropout) and ``mix_draws`` (Mixup's) override the
-        trainer's generator. Returns the detached ``[loss]``, or ``[loss,
-        d_ap, d_an]`` for the triplet branch."""
+        and the backward; gradients add into ``.grad``. ``mix_draws``
+        (Mixup's) override the trainer's generator. Returns the detached
+        ``[loss]``, or ``[loss, d_ap, d_an]`` for the triplet branch."""
         if self.mixup_active and not self.is_triplet:
             x, soft = mixup_cutmix(x, targets, generator=self.generator,
                                    draws=mix_draws, **self.mixup_kw)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            out = self.state.model(x.permute(0, 3, 1, 2), keep_mask=keep_mask,
-                                   generator=self.generator)
+            out = self.state.model(x.permute(0, 3, 1, 2))
         if self.is_triplet:
             logits, fts, _ = out
             bs = x.shape[0] // 3
@@ -124,7 +122,7 @@ class SupLearning(BaseTrainer):
         return torch.stack(stats).detach()
 
     def _train_micro(self, micro, weights):
-        """``(view, targets[, keep_mask[, mix_draws]])`` microbatches
+        """``(view, targets[, mix_draws])`` microbatches
         through one update. Returns ``(loss, aux)``: aux is ``(d_ap,
         d_an)`` for the triplet branch, else empty."""
         total = self._accumulate(
@@ -132,11 +130,9 @@ class SupLearning(BaseTrainer):
             self._forward_backward)
         return total[0], tuple(total[1:])
 
-    def _train_core(self, x, targets, weights, keep_mask=None,
-                    mix_draws=None):
+    def _train_core(self, x, targets, weights, mix_draws=None):
         """One step on a precomputed view."""
-        return self._train_micro([(x, targets, keep_mask, mix_draws)],
-                                 weights)
+        return self._train_micro([(x, targets, mix_draws)], weights)
 
     def _micro_indices(self, n: int):
         """Each microbatch's rows of a batch of ``n`` rows: consecutive

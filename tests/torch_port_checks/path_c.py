@@ -138,8 +138,7 @@ def step_float64(config, model, batch, seed: int):
     trainer = _trainer(config, model, "cpu", seed)
     views = trainer._views(batch[0], batch[2])
     net = trainer.state.model.double()
-    net.forward = lambda x, keep_mask=None, generator=None: net.head(
-        net.backbone(x).double())
+    net.forward = lambda x: net.head(net.backbone(x).double())
     trainer.state.ema = None
     params = dict(net.named_parameters())
     before = {k: p.detach().clone() for k, p in params.items()}

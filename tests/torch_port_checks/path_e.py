@@ -134,6 +134,8 @@ def _trainer(config, model, device: str, seed: int) -> SupLearning:
     trainer.get_config(config, cls_num_list=[1] * 6,
                        labeled_targets=path_c.labeled_targets(config, seed))
     trainer.generator = torch.Generator().manual_seed(seed)
+    if trainer.is_triplet:  # the MLP head draws its dropout from it
+        trainer.state.model.fc.generator = trainer.generator
     return trainer
 
 
@@ -188,8 +190,7 @@ def step_float64(config, model, view, targets, seed: int):
     if trainer.is_triplet:
         net.features = lambda x: net.backbone(x).double()
     else:
-        net.forward = lambda x, keep_mask=None, generator=None: net.head(
-            net.backbone(x).double(), keep_mask, generator)
+        net.forward = lambda x: net.head(net.backbone(x).double())
     trainer.state.ema = None
     params = dict(net.named_parameters())
     before = {k: p.detach().clone() for k, p in params.items()}

@@ -331,8 +331,9 @@ def check_heads_match_flax():
     want, moved, calls = _dropout_forward(base.model)(
         params, stats, jnp.asarray(x), jax.random.key(13))
     (mask,) = _dropout_masks(calls)
+    port.fc.keep_mask = torch.from_numpy(mask)
     with torch.no_grad():
-        got = port.train()(xt, keep_mask=torch.from_numpy(mask))
+        got = port.train()(xt)
     for g, w in zip(got, want):
         _close(g.numpy(), w, rtol=0, atol=1e-4 * np.abs(w).max())
     now = port.state_dict()
@@ -343,8 +344,10 @@ def check_heads_match_flax():
         _close(now[k].numpy(), moved[k].numpy(), rtol=1e-4, atol=1e-6, what=k)
     head = MLPHead(16, 3).train()
     h = torch.randn(5, 16, generator=torch.Generator().manual_seed(0))
-    outs = [head(h, generator=torch.Generator().manual_seed(s))
-            for s in (1, 1, 2)]
+    outs = []
+    for s in (1, 1, 2):
+        head.generator = torch.Generator().manual_seed(s)
+        outs.append(head(h))
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
 
 
@@ -461,6 +464,19 @@ def _step_batch(seed: int, triplet: bool):
             t.astype(np.int32))
 
 
+def _inject_masks(port, masks):
+    """The MLP head's keep-mask set to ``masks[i]`` for the trainer's i-th
+    microbatch forward."""
+    masks = iter(masks)
+    forward_backward = port._forward_backward
+
+    def with_mask(*args):
+        port.state.model.fc.keep_mask = next(masks)
+        return forward_backward(*args)
+
+    port._forward_backward = with_mask
+
+
 def _sup_step(triplet: bool, accum: int, mix: bool, seed: int):
     """One JAX ``_train_step`` and the port's step on the views, Mixup
     draws and dropout masks it drew; compares them."""
@@ -475,23 +491,25 @@ def _sup_step(triplet: bool, accum: int, mix: bool, seed: int):
             accum, -1, *u8.shape[1:])
     else:
         xs = u8.reshape(accum, -1, *u8.shape[1:])
-    micro = []
+    micro, masks = [], []
     keys = [key] if accum == 1 else list(jax.random.split(key, accum))
     base = _jax_sup_base(triplet)
     for x_u8, t_m, k in zip(xs, t.reshape(accum, -1), keys):
         k_aug, k_drop = jax.random.split(k)
         x = _jax_labeled(jnp.asarray(x_u8), k_aug, IMG, jnp.float32)
-        mask = draws = None
+        draws = None
         if triplet:
             (mask,) = _dropout_masks(_dropout_forward(base.model)(
                 base.state.params, base.state.batch_stats, x, k_drop)[2])
-            mask = torch.from_numpy(mask)
+            masks.append(torch.from_numpy(mask))
         if mix:
             draws = _jax_mix_draws(jax.random.split(k_drop)[0], IMG, IMG,
                                    0.4, 1.0)
         micro.append((torch.from_numpy(np.asarray(x)),
-                      torch.from_numpy(t_m).long(), mask, draws))
+                      torch.from_numpy(t_m).long(), draws))
     port = _port_sup_trainer(triplet, accum, mix)
+    if triplet:
+        _inject_masks(port, masks)
     loss, aux = port._train_micro(micro, torch.from_numpy(w))
     _close(float(loss), float(jloss), rtol=1e-5, what="loss")
     assert len(aux) == len(jaux) == 2 * triplet

@@ -459,7 +459,9 @@ def _compare_step(port, jax_out, got, opt, frozen=(), start=None):
 
 def _compare_state(port, jstate, opt, frozen, start):
     """Parameters, BN statistics and EMA after one step from the JAX
-    state ``start``, at ``_compare_step``'s bounds."""
+    state ``start``, at ``_compare_step``'s bounds. Both took one update,
+    whatever GRAD_ACCUM."""
+    assert port.state.step == int(jstate.step) == int(start.step) + 1
     init = _port_state(start.params, start.batch_stats)
     want = _port_state(jstate.params, jstate.batch_stats)
     now = port.state.model.state_dict()
