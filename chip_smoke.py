@@ -34,7 +34,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    against a direct batched forward (bf16, atol 0.02) and two rows against
    a float32 CPU forward of the same artifact (atol 0.05); then times the
    same requests through the same HTTP front with a 0 ms model, and one
-   bucket-32 call outside the server;
+   bucket-32 call outside the server. Path A2: the same model exported
+   with weight-only int8 kernels (``serve/quantize.py``): the artifact's
+   bytes beside the unquantized one's, its probabilities on the card
+   against the unquantized artifact's (atol 0.03, the same argmax on every
+   row) and two rows against its float32 CPU forward (atol 0.05), a
+   bucket-32 call's time, and ``cli/infer.py::predict`` over the 64 images
+   with and without ``--thres`` equal to direct calls of the artifact;
 6. path C: the FixMatch trainer (``endoscopy_tpu_torch/train/fixmatch.py``)
    on ``configs/kaggle_semisupervised_real_3_1.yaml``'s fields (ResNet-50,
    112 px, B=32, MU=7, bf16, Adam, EMA; seeded random weights and seeded
@@ -115,6 +121,33 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    forward; the checkpoint grafted as ``MODEL.PRE_TRAIN_PATH`` into
    ``kaggle_semisupervised_real_3_1``'s FixMatch trainer arrives with its
    backbone bit-identical. No kernel runs on this path (0 launches).
+9. path F: the CoMatch trainer (``endoscopy_tpu_torch/train/comatch.py``;
+   configs and helpers in ``tests/torch_port_checks/path_f.py``) on
+   ``configs/kaggle_semisupervised_real_1.yaml``'s fields (ResNet-50 under
+   ``ModelwEmb``, LOW_DIM 64, 112 px, B=32, MU=5: 512 images a step, Adam,
+   cosine, EMA, class weights, THRES 0.9). F1: for three seeds, one SGD
+   step at B=4, MU=1 from a seeded state (each block's last BN scale 0.1,
+   the MLP head's first bias 3 so that every unit is active) with the same
+   draws and dropout keep-mask, on the card (float32 without TF32 on both
+   devices' views, as E3; then bf16) against the CPU's float32 step at
+   path C's bounds;
+   THRES in the widest gap of the weak max-probabilities (after DA and
+   smoothing) that float32 and bf16 agree on, no off-diagonal ``Q`` entry
+   within their disagreement of 0.8, and a bf16 control whose strong-1
+   view is strong-0 that the check must refuse. F2: ``train_one`` at full
+   width, 3 warm-up and 12 timed steps: step ms, images/s, the FLOP share,
+   peak memory, one kernel launch a step (plain mode, no crop), the kernel
+   against its plain version on the step's own strong-0 input (0.0), a
+   CUDA-event split (labeled view, ``comatch_views``, the kernel alone,
+   forward+backward, the no-grad block and graph loss, optimizer+EMA, each
+   with its host enqueue), ``da_count`` and the memory bank still zero
+   (the reference's ``n == queue_size`` gate). F3: ``run_config`` on real_1's
+   fields with path D's kind of seeded images (512 labeled, 1,280
+   unlabeled, 512 valid at 134 px), cut to 3 epochs of 8 steps with an
+   evaluation and a checkpoint each and EMA decay 0.9: one launch a step,
+   a finite and falling train loss, the checkpoints and evaluations; then
+   3 steps of ``kaggle_semisupervised_real_1_1``'s fields (SGD, MU=7, 704
+   images a step).
 
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line and ``{"ok": true, "device": {...}}``.
@@ -134,7 +167,7 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-from torch_port_checks import path_c, path_d, path_e  # noqa: E402
+from torch_port_checks import path_c, path_d, path_e, path_f  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 
@@ -145,6 +178,9 @@ TOL = {"float32": {"sharpness": 0.51, "contrast": 1.0},
        "bfloat16": {"sharpness": 1.0, "contrast": 2.0}}
 SERVE_ATOL = 0.02  # probabilities, bucketed bf16 vs one batched bf16 forward
 F32_ATOL = 0.05  # probabilities, bf16 on the card vs float32 on the CPU
+# path A2: int8 weights against the unquantized artifact, both on the card
+# (the JAX package's bar, tests/test_serve.py), and the same argmax
+INT8_ATOL = 0.03
 
 IMG_C = path_c.REAL_3_1["DATA"]["IMG_SIZE"]  # path C's full-width side
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 3, 12
@@ -726,6 +762,49 @@ def train_flops_per_image(model, img: int) -> int:
     return 2 * (3 * fwd - macs["backbone.conv1"])
 
 
+def timed_train_one(trainer, config, seed: int, path: str):
+    """``train_one`` on ``step_loaders``: ``TRAIN_WARMUP_STEPS`` warm-up
+    steps, then ``TRAIN_TIMED_STEPS`` steps with the kernel's count at 0,
+    CUDA events between steps and the peak memory. Fails unless the kernel
+    ran once a step and the mean loss is finite. Returns ``(step ms array,
+    median, wall s, warm-up s, peak bytes, launches)``."""
+    import torch
+
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    marks = []
+    trainer.get_dataloader(step_loaders(config, seed, marks), None)
+    config.TRAIN.EVAL_STEP = TRAIN_WARMUP_STEPS
+    t0 = time.perf_counter()
+    trainer.train_one(0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    config.TRAIN.EVAL_STEP = TRAIN_TIMED_STEPS
+    marks.clear()
+    step0 = trainer.state.step
+    torch.cuda.reset_peak_memory_stats()
+    rk.randaugment_mc.launches = 0
+    t0 = time.perf_counter()
+    meter = trainer.train_one(1)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = rk.randaugment_mc.launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = trainer.state.step - step0
+    step_ms = np.array([a.elapsed_time(z) for a, z in
+                        zip(marks, marks[1:TRAIN_TIMED_STEPS] + [end])])
+    if steps != TRAIN_TIMED_STEPS or launches != steps:
+        fail(f"path {path}: {steps} steps launched the kernel {launches} "
+             "times (once a step expected)")
+    if not np.isfinite(meter.avg):
+        fail(f"path {path}: mean loss {meter.avg}")
+    return (step_ms, float(np.median(step_ms)), wall_s, warm_s, peak,
+            launches, meter.avg)
+
+
 def phase_train_full(seed: int):
     """Path C, part 2: ``train_one`` at real_3_1's full width."""
     import contextlib
@@ -750,44 +829,16 @@ def phase_train_full(seed: int):
     model = path_c.seeded_model(config, seed, path_c.HEAD_STD)
     flops = train_flops_per_image(model, img) * images
     trainer = FixMatch(model, config.TRAIN.OPT_NAME, device="cuda")
-    marks = []
-    trainer.get_dataloader(step_loaders(config, seed, marks), None)
     trainer.get_config(config, labeled_targets=path_c.labeled_targets(config, seed))
-
-    config.TRAIN.EVAL_STEP = TRAIN_WARMUP_STEPS
-    t0 = time.perf_counter()
-    trainer.train_one(0)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    config.TRAIN.EVAL_STEP = TRAIN_TIMED_STEPS
-    marks.clear()
-    step0 = trainer.state.step
-    torch.cuda.reset_peak_memory_stats()
-    rk.randaugment_mc.launches = 0
-    t0 = time.perf_counter()
-    meter = trainer.train_one(1)
-    end = torch.cuda.Event(enable_timing=True)
-    end.record()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = rk.randaugment_mc.launches
-    peak = torch.cuda.max_memory_allocated()
-    steps = trainer.state.step - step0
-    step_ms = np.array([a.elapsed_time(z) for a, z in
-                        zip(marks, marks[1:TRAIN_TIMED_STEPS] + [end])])
-    if steps != TRAIN_TIMED_STEPS or launches != steps:
-        fail(f"path C: {steps} steps launched the kernel {launches} times "
-             "(once a step expected)")
-    if not np.isfinite(meter.avg):
-        fail(f"path C: mean loss {meter.avg}")
-    med = float(np.median(step_ms))
+    step_ms, med, wall_s, warm_s, peak, launches, loss = timed_train_one(
+        trainer, config, seed, "C")
+    steps = TRAIN_TIMED_STEPS
     print(f"path C part 2: {steps} steps of {images} images (B={b}, B*MU={bu}, "
           f"{img} px, bf16) after {TRAIN_WARMUP_STEPS} warm-up steps "
           f"({warm_s:.2f} s); step ms (CUDA events between steps) median "
           f"{med:.3f}, min {step_ms.min():.3f}, max {step_ms.max():.3f}, all "
           f"{np.round(step_ms, 3).tolist()}; wall {wall_s:.3f} s, "
-          f"{images * steps / wall_s:.1f} images/s; mean loss {meter.avg:.4f}; "
+          f"{images * steps / wall_s:.1f} images/s; mean loss {loss:.4f}; "
           f"randaugment_mc launches {launches}; peak memory {peak} B",
           flush=True)
 
@@ -1597,6 +1648,413 @@ def phase_supervised(seed: int, out_dir: Path, data2):
     return out
 
 
+def phase_serve_int8(seed: int, out_dir: Path):
+    """Path A2: path A's model exported with weight-only int8 kernels."""
+    import os
+
+    from endoscopy_tpu_torch.cli.infer import predict
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+    from endoscopy_tpu_torch.serve.export import export_model, load_exported
+    from endoscopy_tpu_torch.serve.quantize import (quantize_state_dict,
+                                                    quantized_fraction)
+
+    config, model = seeded_resnet50(seed)
+    full = out_dir / "resnet50_seeded.pt"  # path A's artifact
+    path = out_dir / "resnet50_seeded_int8.pt"
+    size, _ = export_model(config, model.state_dict(), str(path),
+                           quantize="int8")
+    frac = quantized_fraction(quantize_state_dict(model), model)
+    imgs = np.random.default_rng(seed).integers(
+        0, 256, (N_REQUESTS, size, size, 3)).astype(np.uint8)
+    rk.randaugment_mc.launches = 0
+    f_full = load_exported(str(full), device="cuda")
+    f_q = load_exported(str(path), device="cuda")
+    p_full, p_q = f_full(imgs), f_q(imgs)
+    err = float(np.abs(p_q - p_full).max())
+    flips = int((p_q.argmax(1) != p_full.argmax(1)).sum())
+    cpu = load_exported(str(path), device="cpu")(imgs[:2])
+    err32 = float(np.abs(p_q[:2] - cpu).max())
+    sizes = (os.path.getsize(path), os.path.getsize(full))
+    print(f"path A2: int8 artifact {sizes[0]} B against {sizes[1]} B "
+          f"unquantized ({sizes[0] / sizes[1]:.4f}; {frac:.4f} of the "
+          f"parameter scalars int8); {N_REQUESTS} images on the card: int8 "
+          f"vs unquantized max_abs_err={err} (atol {INT8_ATOL}), argmax "
+          f"differs on {flips} rows; vs the int8 artifact in float32 on the "
+          f"CPU max_abs_err={err32} (atol {F32_ATOL})", flush=True)
+    if not np.isfinite(p_q).all() or err > INT8_ATOL or flips:
+        fail("path A2: the int8 artifact's probabilities differ from the "
+             "unquantized artifact's")
+    if err32 > F32_ATOL:
+        fail(f"path A2: bf16 int8 probabilities differ from float32 ({err32})")
+
+    batch = imgs[:32]
+    ms = {}
+    for name, fn in (("int8", f_q), ("unquantized", f_full)):
+        fn(batch)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn(batch)
+        ms[name] = (time.perf_counter() - t0) * 100
+    print(f"path A2: a bucket-32 call (upload, view, forward, softmax, "
+          f"download), host clock: int8 {ms['int8']:.2f} ms, unquantized "
+          f"{ms['unquantized']:.2f} ms", flush=True)
+
+    # cli/infer.py's prediction over in-memory canonical images, batches
+    # of 32, against direct calls of the artifact on the same batches
+    direct = np.concatenate([f_q(imgs[:32]), f_q(imgs[32:])])
+    thres = float(np.median(direct.max(1)))
+    got = predict(f_q, lambda lo, hi: imgs[lo:hi], len(imgs), 32)
+    got_t = predict(f_q, lambda lo, hi: imgs[lo:hi], len(imgs), 32, thres)
+    same = (np.array_equal(got["pred"], direct.argmax(1))
+            and np.array_equal(got["max_prob"], direct.max(1))
+            and np.array_equal(got_t["pred"], direct.argmax(1)
+                               * (direct.max(1) > thres)))
+    print(f"path A2: cli/infer.py's predict over {len(imgs)} images (batch "
+          f"32), with and without --thres {thres:.4f}: equal to direct "
+          f"calls {same}; randaugment_mc launches {rk.randaugment_mc.launches}"
+          f" (none expected)", flush=True)
+    if not same or rk.randaugment_mc.launches:
+        fail("path A2: cli/infer.py's predictions differ from the artifact's")
+    return {"bytes_int8": sizes[0], "bytes_unquantized": sizes[1],
+            "quantized_fraction": frac, "max_abs_err": err,
+            "max_abs_err_f32_cpu": err32, "bucket32_ms": ms}
+
+
+def _comatch_errors(got, ref):
+    """(worst relative error of loss, lx, lu, lc where the reference is
+    not 0, relative L2 error of the updates, worst tensor)."""
+    (stats, upd), (ref_stats, ref_upd) = got, ref
+    rel = max(abs(a - b) / abs(b) for a, b in zip(stats, ref_stats) if b)
+    return (rel, *path_c.update_errors(upd, ref_upd))
+
+
+def _strong1_as_strong0(x, w, s0, s1):
+    return x, w, s0, s0  # as if the colour-jitter view were the RandAugment one
+
+
+def comatch_step_matches_cpu(seed: int):
+    """Path F1 for one seed: one CoMatch SGD step of ResNet-50 under
+    ``ModelwEmb`` at 112 px, B=4, MU=1, from one seeded state with the
+    same draws and dropout keep-mask, on the card against the CPU's
+    float32 step, both devices on both devices' views (path E3's method)."""
+    config = path_f.step_config()
+    model = path_f.step_model(config, seed, PART1_RESIDUAL_GAMMA)
+    batch = path_c.canonical_batches(config, seed, 1)[0]
+    t = batch[1]
+    keep = path_f.keep_mask(config, model, seed)
+    views = {dev: path_f.step_views(config, model, batch, dev, seed)
+             for dev in ("cuda", "cpu")}
+    view_errs = [float((a.cpu() - b).abs().max())
+                 for a, b in zip(views["cuda"], views["cpu"])]
+    config.TRAIN.DTYPE = "bfloat16"
+    views16 = path_f.step_views(config, model, batch, "cuda", seed)
+
+    # THRES in the widest gap between two of the four weak max-
+    # probabilities (after DA and smoothing) that leaves the same rows
+    # above it in the CPU's float32 forward and the card's bf16 forward
+    p16, q16 = path_f.pseudo_scores(config, model, views16, t, "cuda", seed,
+                                    keep)
+    config.TRAIN.DTYPE = "float32"
+    p32, q32 = path_f.pseudo_scores(config, model, views["cpu"], t, "cpu",
+                                    seed, keep)
+    order = p32.sort(descending=True).values
+    thres, margin = None, 0.0
+    for k in (1, 2, 3):
+        th = float(order[k - 1] + order[k]) / 2
+        m = min(float((p32 - th).abs().min()), float((p16 - th).abs().min()))
+        if int((p16 >= th).sum()) == k and m > margin:
+            thres, margin = th, m
+    # no off-diagonal Q entry within the float32/bf16 disagreement of 0.8
+    q_gap = float((q32 - q16).abs().max())
+    q_margin = min(float((q32 - 0.8).abs().min()),
+                   float((q16 - 0.8).abs().min()))
+    print(f"path F1, seed {seed}: the views (labeled, weak, strong-0, "
+          f"strong-1) on the card vs the CPU's on the same draws: max_abs_err "
+          f"{[f'{e:.3e}' for e in view_errs]} (bound {E3_VIEW_TOL}); weak "
+          f"max-probabilities, float32 on the CPU {p32.tolist()}, bf16 on the "
+          f"card {p16.tolist()}; THRES {thres}, margin {margin:.3e}; "
+          f"off-diagonal Q: max {float(q32.max()):.4f}, nearest to 0.8 by "
+          f"{q_margin:.3e} against a float32/bf16 disagreement of "
+          f"{q_gap:.3e}", flush=True)
+    if max(view_errs) > E3_VIEW_TOL:
+        fail("path F1: a view differs on the card")
+    if thres is None:
+        fail("path F1: no THRES splits the weak rows alike in float32 and "
+             "bf16")
+    if q_margin <= q_gap:
+        fail("path F1: a Q entry lies within the precision gap of 0.8")
+    config.TRAIN.THRES = thres
+
+    def step(dev, v, alter=None):
+        return path_f.step_once(config, model, v, t, dev, seed, keep, alter)
+
+    # each device's float32 step on each device's view
+    steps = {(dev, v): step(dev, views[v]) for dev in ("cpu", "cuda")
+             for v in ("cuda", "cpu")}
+    upd64 = path_f.step_float64(config, model, views["cuda"], t, seed, keep)
+    ref = steps["cpu", "cuda"]
+    cpu_l2, cpu_worst = path_c.update_errors(ref[1], upd64)
+    sens = {dev: path_c.update_errors(steps[dev, "cpu"][1],
+                                      steps[dev, "cuda"][1])[0]
+            for dev in ("cpu", "cuda")}
+    rel = max(_comatch_errors(steps["cuda", v], steps["cpu", v])[0]
+              for v in ("cuda", "cpu"))
+    l2s = {v: path_c.update_errors(steps["cuda", v][1], steps["cpu", v][1])
+           for v in ("cuda", "cpu")}
+    l2_64 = path_c.update_errors(steps["cuda", "cuda"][1], upd64)[0]
+    bounds = {"cpu": 3 * cpu_l2 + 1e-3,
+              "cuda": 3 * max(cpu_l2, *sens.values()) + 1e-3}
+    print(f"path F1, seed {seed}: float32, card vs CPU: [loss, lx, lu, lc] "
+          f"{steps['cuda', 'cuda'][0]} vs {ref[0]}, worst relative error on "
+          f"either view {rel:.3e} (bound {TRAIN_TOL_F32_LOSS}); SGD updates "
+          f"relative L2 on the CPU's view {l2s['cpu'][0]:.3e} (bound "
+          f"{bounds['cpu']:.3e}: the CPU's float32 step is {cpu_l2:.3e} from "
+          f"float64, worst tensor {cpu_worst:.3e}), on the card's "
+          f"{l2s['cuda'][0]:.3e} (worst tensor {l2s['cuda'][1]:.3e}; bound "
+          f"{bounds['cuda']:.3e}: a view's last bits move the CPU's step by "
+          f"{sens['cpu']:.3e}, the card's by {sens['cuda']:.3e}); the card "
+          f"against float64 {l2_64:.3e}", flush=True)
+    if not ref[0][2] > 0:
+        fail("path F1: the unsupervised loss is 0 (no weak row passed THRES)")
+    if rel > TRAIN_TOL_F32_LOSS or any(l2s[v][0] > bounds[v] for v in bounds):
+        fail("path F1 float32 step on the card differs from the CPU's")
+    out = {"view_max_abs_err": max(view_errs), "thres": thres,
+           "margin": margin, "q_margin": q_margin, "q_gap": q_gap,
+           "float32": {"loss_rel_err": rel, "update_l2_err": l2s["cuda"][0],
+                       "update_l2_err_cpu_view": l2s["cpu"][0],
+                       "update_l2_err_vs_f64": l2_64,
+                       "cpu_f32_vs_f64_l2": cpu_l2,
+                       "view_sensitivity_l2": sens}}
+    # bf16 on the card's bf16 views against the CPU's float32 step on its
+    # own views, and the control that the check must refuse
+    config.TRAIN.DTYPE = "bfloat16"
+    ref32 = steps["cpu", "cpu"]
+    for alter in (None, _strong1_as_strong0):
+        got = step("cuda", views16, alter)
+        rel16, l2, worst = _comatch_errors(got, ref32)
+        what = "bf16" if alter is None else "bf16 control (strong-1 as strong-0)"
+        print(f"path F1, seed {seed}: {what} on the card vs float32 on the "
+              f"CPU: [loss, lx, lu, lc] {got[0]} vs {ref32[0]}; worst "
+              f"relative loss error {rel16:.3e} (bound {TRAIN_TOL_BF16_LOSS}); "
+              f"SGD updates relative L2 error {l2:.3e} (bound "
+              f"{TRAIN_TOL_BF16_UPDATE}), worst tensor {worst:.3e}",
+              flush=True)
+        sound = rel16 <= TRAIN_TOL_BF16_LOSS and l2 <= TRAIN_TOL_BF16_UPDATE
+        if alter is None and not sound:
+            fail("path F1 bf16 step on the card differs from the CPU's")
+        if alter is not None and sound:
+            fail("path F1 bf16 check passes a step whose strong-1 view is "
+                 "strong-0")
+        out["bfloat16" if alter is None else "bfloat16_control"] = {
+            "loss_rel_err": rel16, "update_l2_err": l2}
+    config.TRAIN.DTYPE = "float32"
+    return out
+
+
+def comatch_full(seed: int):
+    """Path F2: ``train_one`` at real_1's full width, 512 images a step."""
+    from unittest import mock
+
+    import torch
+
+    from endoscopy_tpu_torch.aug import views
+    from endoscopy_tpu_torch.aug.randaugment import randaugment_mc_plain
+    from endoscopy_tpu_torch.aug.views import comatch_views, labeled_train_view
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+    from endoscopy_tpu_torch.train.comatch import CoMatch
+
+    config = path_c.train_config(path_f.REAL_1)
+    img = int(config.DATA.IMG_SIZE)
+    b, bu = int(config.DATA.BATCH_SIZE), int(config.DATA.BATCH_SIZE) * int(config.DATA.MU)
+    images = path_f.images_per_step(config)
+    model = path_c.seeded_model(config, seed, path_c.HEAD_STD)
+    flops = train_flops_per_image(model, img) * images
+    trainer = CoMatch(model, config.TRAIN.OPT_NAME, device="cuda")
+    trainer.get_config(config, labeled_targets=path_c.labeled_targets(config, seed))
+    step_ms, med, wall_s, warm_s, peak, launches, loss = timed_train_one(
+        trainer, config, seed, "F2")
+    steps = TRAIN_TIMED_STEPS
+    cs = trainer.comatch_state
+    da_count = int(cs.da_count)
+    queue_zero = not bool(cs.queue_feats.any() or cs.queue_probs.any())
+    share = flops / (med * 1e-3) / H100_BF16_FLOPS
+    print(f"path F2: {steps} steps of {images} images (B={b}, B*MU={bu}, "
+          f"{img} px, bf16: labeled, weak, strong-0, strong-1) after "
+          f"{TRAIN_WARMUP_STEPS} warm-up steps ({warm_s:.2f} s); step ms (CUDA "
+          f"events between steps) median {med:.3f}, min {step_ms.min():.3f}, "
+          f"max {step_ms.max():.3f}, all {np.round(step_ms, 3).tolist()}; "
+          f"wall {wall_s:.3f} s, {images * steps / wall_s:.1f} images/s; mean "
+          f"loss {loss:.4f}; randaugment_mc launches {launches}; peak "
+          f"memory {peak} B; model FLOPs per step {flops}, "
+          f"{flops / (med * 1e-3) / 1e12:.2f} TFLOP/s, {share:.4f} of the "
+          f"dense bf16 peak; da_count {da_count}, queue still zero "
+          f"{queue_zero} (queue_size {trainer.queue_size}, {b + bu} rows a "
+          f"step)", flush=True)
+    if da_count != TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS or not queue_zero:
+        fail(f"path F2: da_count {da_count}, the queue zero {queue_zero}")
+
+    # the kernel's own input in one more step (plain mode), against the
+    # plain version
+    seen = []
+    kernel = views.randaugment_mc
+
+    def recording(x, pi, pf, *a, **k):
+        seen.append((x.clone(), pi.clone(), pf.clone()))
+        return kernel(x, pi, pf, *a, **k)
+
+    x_u8, t, u_u8 = path_c.canonical_batches(config, seed, 1)[0]
+    x_dev, u_dev = torch.from_numpy(x_u8).cuda(), torch.from_numpy(u_u8).cuda()
+    t_dev = torch.from_numpy(t).cuda()
+    w = trainer.class_weights
+    with mock.patch.object(views, "randaugment_mc", recording):
+        trainer._train_step(x_dev, t_dev, u_dev, w, True)
+    xk, pi, pf = seen[0]
+    got = rk.randaugment_mc(xk, pi, pf)
+    ref = randaugment_mc_plain(xk, pi, pf)
+    err = float((got.float() - ref.float()).abs().max())
+    kern_ms = cuda_ms(lambda: rk.randaugment_mc(xk, pi, pf), iters=50,
+                      warmup=3)
+    plain_ms = cuda_ms(lambda: randaugment_mc_plain(xk, pi, pf), iters=2,
+                       warmup=1)
+    bytes_moved = 2 * xk.numel() * xk.element_size() + pi.numel() * 4 + pf.numel() * 4
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    print(f"path F2: randaugment_mc in plain mode on the step's strong-0 "
+          f"input {tuple(xk.shape)} {xk.dtype}: kernel vs plain version "
+          f"max_abs_err={err} (tol 0.0); kernel {kern_ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bytes_moved} B at "
+          f"{HBM_BYTES_PER_S:.3g} B/s)", flush=True)
+    if err != 0.0:
+        fail(f"path F2: the kernel differs from the plain version ({err})")
+
+    # the step's parts at its shapes: CUDA events and the host's enqueue
+    g = trainer.generator
+
+    def lab_view():
+        labeled_train_view(x_dev, img, torch.bfloat16, g, device="cuda")
+
+    def cm_views():
+        comatch_views(u_dev, img, torch.bfloat16, g, device="cuda")
+
+    v = trainer._views(x_dev, u_dev)
+
+    def fwd_bwd():
+        trainer._forward_backward(*v, t_dev, w, True)
+
+    with torch.no_grad():
+        logits, low = trainer._forward(*v)
+
+    def losses():
+        with torch.no_grad():
+            trainer._losses(logits, low, b, t_dev, w, True)
+
+    split = {}
+    for name, fn, iters in (("labeled_view", lab_view, 10),
+                            ("comatch_views", cm_views, 10),
+                            ("kernel", lambda: rk.randaugment_mc(xk, pi, pf), 20),
+                            ("fwd_bwd", fwd_bwd, 5),
+                            ("no_grad_block_and_graph_loss", losses, 10),
+                            ("opt_ema", trainer._apply_grads, 5)):
+        split[name] = {"ms": cuda_ms(fn, iters=iters),
+                       "host_ms": host_ms(fn)}
+    print("path F2 split (ms, CUDA events / host enqueue): " + "; ".join(
+        f"{k} {s['ms']:.4f} / {s['host_ms']:.4f}" for k, s in split.items())
+        + f"; sum of labeled view, comatch_views, forward+backward and "
+        f"optimizer+EMA {sum(split[k]['ms'] for k in ('labeled_view', 'comatch_views', 'fwd_bwd', 'opt_ema')):.3f} "
+        f"against the step's {med:.3f}", flush=True)
+    return {"step_ms_median": med, "step_ms_min": float(step_ms.min()),
+            "step_ms_max": float(step_ms.max()),
+            "images_per_s": images * steps / wall_s, "peak_bytes": peak,
+            "flops_per_step": flops, "flop_share": share,
+            "launches_per_step": launches / steps, "kernel_ms": kern_ms,
+            "kernel_max_abs_err": err, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "da_count": da_count, "split": split}
+
+
+def comatch_learn(seed: int, out_dir: Path):
+    """Path F3: ``run_config`` on real_1's fields and a few steps of
+    real_1_1's through ``cli/learn.py``, on path D's kind of images."""
+    import shutil
+
+    import torch
+
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log_dir = out_dir / "log"
+    cfg1, cfg2 = path_f.learn_configs(str(out_dir / "ckpt"), str(log_dir))
+    t0 = time.perf_counter()
+    data = path_d.synthetic_data(cfg1, path_f.F3_SIZES, seed + 2)
+    gen_s = time.perf_counter() - t0
+    epochs, steps = int(cfg1.TRAIN.EPOCHS), int(cfg1.TRAIN.EVAL_STEP)
+    rk.randaugment_mc.launches = 0
+    torch.manual_seed(seed)  # the fresh weights, seeded
+    t0 = time.perf_counter()
+    trainer, _ = learn.run_config(cfg1, device="cuda", data=data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = rk.randaugment_mc.launches
+    log = _log_records(log_dir, "comatch")
+    train = [r for r in log if "loss/train" in r]
+    valid = [r for r in log if "loss/valid" in r]
+    saved = sorted(p.name for p in (out_dir / "ckpt" / "real_1").iterdir())
+    print(f"path F3: real_1 through run_config, data {path_f.F3_SIZES} at "
+          f"{data[1].size} px made in {gen_s:.2f} s; {epochs} epochs of "
+          f"{steps} steps of {trainer._images_per_step()} images in "
+          f"{fit_s:.2f} s; train loss "
+          f"{[round(r['loss/train'], 4) for r in train]}, step ms (wall / "
+          f"steps) {[round(r['time/epoch_s'] * 1e3 / steps, 3) for r in train]}"
+          f", valid loss {[round(r['loss/valid'], 4) for r in valid]}, "
+          f"macro-F1 {[r['metric/macro_f1'] for r in valid]}; randaugment_mc "
+          f"launches {launches}; checkpoints {saved}; da_count "
+          f"{int(trainer.comatch_state.da_count)}", flush=True)
+    if launches != epochs * steps:
+        fail(f"path F3: {launches} kernel launches in {epochs * steps} steps")
+    losses = [r["loss/train"] for r in train]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"path F3: train loss {losses} is not finite and falling")
+    if len(valid) != epochs or saved != [f"epoch_{e}" for e in
+                                         range(1, epochs + 1)]:
+        fail(f"path F3: evaluations {len(valid)}, checkpoints {saved}")
+
+    # real_1_1: SGD, MU=7, 704 images a step, on the same images
+    data[0][1].batch_size = int(cfg2.DATA.BATCH_SIZE) * int(cfg2.DATA.MU)
+    steps2 = int(cfg2.TRAIN.EVAL_STEP) * int(cfg2.TRAIN.EPOCHS)
+    rk.randaugment_mc.launches = 0
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    trainer2, _ = learn.run_config(cfg2, device="cuda", data=data)
+    torch.cuda.synchronize()
+    sgd_s = time.perf_counter() - t0
+    launches2 = rk.randaugment_mc.launches
+    train2 = [r for r in _log_records(log_dir, "comatch")
+              if "loss/train" in r][len(train):]
+    print(f"path F3: real_1_1 ({cfg2.TRAIN.OPT_NAME}, MU={cfg2.DATA.MU}, "
+          f"{trainer2._images_per_step()} images a step) {steps2} steps in "
+          f"{sgd_s:.2f} s: train loss {[r['loss/train'] for r in train2]}, "
+          f"step count {trainer2.state.step}, randaugment_mc launches "
+          f"{launches2}", flush=True)
+    if (trainer2.state.step != steps2 or launches2 != steps2
+            or trainer2._images_per_step() != 704
+            or not np.isfinite([r["loss/train"] for r in train2]).all()):
+        fail("path F3: real_1_1 did not take its steps")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"launches": launches, "steps": epochs * steps,
+            "launches_per_step": launches / (epochs * steps),
+            "train_loss": losses,
+            "macro_f1": [r["metric/macro_f1"] for r in valid],
+            "real_1_1_launches_per_step": launches2 / steps2}
+
+
+def phase_comatch(seed: int, out_dir: Path):
+    """Path F: the CoMatch trainer, F1-F3."""
+    out = {"f1": {s: comatch_step_matches_cpu(s)
+                  for s in range(seed, seed + PART1_SEEDS)}}
+    out["f2"] = comatch_full(seed)
+    out["f3"] = comatch_learn(seed, out_dir)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1633,8 +2091,10 @@ def main(argv=None) -> int:
     max_err = phase_compare(gen, IMG)
     max_err_c = phase_compare(gen, IMG_C)
     row = phase_views(gen, args.seed)
-    phase_serve(args.seed, Path(__file__).resolve().parent / "build"
-                / "chip_smoke")
+    serve_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    phase_serve(args.seed, serve_dir)
+    int8_row = phase_serve_int8(args.seed, serve_dir)
+    print("path A2: " + json.dumps(int8_row), flush=True)
     t0 = time.perf_counter()
     correct = phase_train_correctness(args.seed)
     train = phase_train_full(args.seed)
@@ -1652,6 +2112,11 @@ def main(argv=None) -> int:
     sup_row = phase_supervised(args.seed, scratch / "path_e", data2)
     print(f"path E took {time.perf_counter() - t0:.1f} s", flush=True)
     print("path E: " + json.dumps(sup_row), flush=True)
+    t0 = time.perf_counter()
+    cm_row = phase_comatch(args.seed, scratch / "path_f")
+    print(f"path F took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("path F: " + json.dumps(cm_row), flush=True)
+    f2, f3 = cm_row["f2"], cm_row["f3"]
 
     kernels = [{
         "name": "randaugment_mc", "route": "cuda",
@@ -1675,6 +2140,15 @@ def main(argv=None) -> int:
                    "stage2_launches_per_step":
                        learn_row["stage2_launches_per_step"]},
         "path_e": {"launches": sup_row["launches"]},
+        "path_f": {"launches_per_step": f2["launches_per_step"],
+                   "max_abs_err": f2["kernel_max_abs_err"],
+                   "ms": f2["kernel_ms"], "plain_ms": f2["plain_ms"],
+                   "bound_ms": f2["bound_ms"], "bound_by": "bytes",
+                   "side": int(path_f.REAL_1["DATA"]["IMG_SIZE"]),
+                   "mode": "plain",
+                   "f3_launches": f3["launches"], "f3_steps": f3["steps"],
+                   "f3_real_1_1_launches_per_step":
+                       f3["real_1_1_launches_per_step"]},
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -170,3 +170,60 @@ def contrast(x: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     inv = float(np.float32(1.0) / np.float32(lum.shape[1] * lum.shape[2]))
     gray = torch.floor(fma(total, inv, 0.5))
     return _blend(_per_image(gray, x), x, factor)
+
+
+def grayscale(x: torch.Tensor) -> torch.Tensor:
+    """transforms.RandomGrayscale's op: PIL 'L' in all three channels."""
+    return luminance(x)[..., None].expand(x.shape).contiguous()
+
+
+_INV_255 = float(np.float32(1.0) / np.float32(255.0))
+_INV_6 = float(np.float32(1.0) / np.float32(6.0))
+
+
+def _floor_mod1(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.remainder(v, 1.0)``: ``fmod``, then ``+ 1`` where negative."""
+    r = torch.fmod(v, 1.0)
+    return torch.where(r < 0, r + 1.0, r)
+
+
+def adjust_hue(x: torch.Tensor, hue_factor: torch.Tensor) -> torch.Tensor:
+    """torchvision ``adjust_hue`` per image of an NHWC batch: RGB → HSV,
+    the hue shifted by ``hue_factor`` (B,) turns, HSV → RGB, in ``x``'s
+    dtype.
+
+    The reference's XLA arithmetic, written out: ``/255`` and ``/6`` are
+    products by the float32 reciprocals; ``1 - s * f`` and ``1 - s * (1 -
+    f)`` are fused multiply-adds, ``f = h * 6 - i`` is not (the product
+    also feeds the floor); ``%`` is floor-mod; the sector select takes the
+    first true branch.
+    """
+    dt = x.dtype
+    v3 = x * _INV_255
+    r, g, b = v3[..., 0], v3[..., 1], v3[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    v = maxc
+    d = maxc - minc
+    zero = torch.zeros((), dtype=dt, device=x.device)
+    s = torch.where(maxc > 0, d / torch.clamp(maxc, min=1e-8), zero)
+    dn = torch.clamp(d, min=1e-8)
+    rc, gc, bc = (maxc - r) / dn, (maxc - g) / dn, (maxc - b) / dn
+    h = torch.where(r == maxc, bc - gc,
+                    torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = _floor_mod1(h * _INV_6)
+    h = torch.where(d == 0, zero, h)
+    h = _floor_mod1(h + _per_image(hue_factor, x)[..., 0])
+
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * fma(-s, f, 1.0).to(dt)
+    t = v * fma(-s, 1.0 - f, 1.0).to(dt)
+    sector = torch.remainder(i.to(torch.int32), 6)
+    r2 = torch.stack([v, q, p, p, t, v])
+    g2 = torch.stack([t, v, v, q, p, p])
+    b2 = torch.stack([p, p, t, v, v, q])
+    idx = sector[None].long()
+    out = torch.stack([c.gather(0, idx)[0] for c in (r2, g2, b2)], dim=-1)
+    return torch.clamp(out * 255.0, 0.0, 255.0).to(dt)

@@ -5,13 +5,14 @@ at IMG_SIZE in ``dtype``, on ``device`` (``cuda`` unless the caller asks
 for ``cpu``). Every random draw can be passed in; what is not passed comes
 from the caller's ``torch.Generator``.
 
-The strong view's reflect-pad RandomCrop is fused into the RandAugment
-kernel: the view hands it the un-padded flipped image, the crop offsets and
-the padding, and the kernel reads each window through mirrored indices, so
-no padded batch is made. On the card the strong view always runs the CUDA
-kernel; the plain version runs only for tensors on the CPU. The labeled
-train view is plain PyTorch: the reference computes it with XLA, outside
-any Pallas kernel.
+FixMatch's strong view fuses its reflect-pad RandomCrop into the
+RandAugment kernel: the view hands it the un-padded flipped image, the crop
+offsets and the padding, and the kernel reads each window through mirrored
+indices, so no padded batch is made. CoMatch's strong-0 view launches the
+kernel in plain mode (no crop). On the card these views always run the
+CUDA kernel; the plain version runs only for tensors on the CPU. The
+labeled train view and CoMatch's colour-jitter view are plain PyTorch: the
+reference computes them with XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -54,6 +55,12 @@ def _center_float(batch_u8, img_size: int, dtype, device) -> torch.Tensor:
     return _center(_u8_on_device(batch_u8, device), img_size).to(dtype)
 
 
+def _flip_where(x: torch.Tensor, flips, flip=ops.hflip) -> torch.Tensor:
+    """``flip(x)`` on the images whose ``flips`` (B,) entry is true."""
+    flips = torch.as_tensor(flips, device=x.device).view(-1, 1, 1, 1)
+    return torch.where(flips, flip(x), x)
+
+
 def eval_view(batch_u8, img_size: int, dtype=torch.float32,
               device=None) -> torch.Tensor:
     """Deterministic center crop + normalize."""
@@ -87,8 +94,7 @@ def fixmatch_views(batch_u8, img_size: int, dtype=torch.float32,
         pi, pf = sample_randaugment_params(generator, b, img_size, img_size)
 
     dev = weak.device
-    flips = torch.as_tensor(flips, device=dev).view(b, 1, 1, 1)
-    strong = torch.where(flips, ops.hflip(weak), weak)
+    strong = _flip_where(weak, flips)
     tops = torch.as_tensor(tops, device=dev).to(torch.int32)
     lefts = torch.as_tensor(lefts, device=dev).to(torch.int32)
     pi = torch.cat([torch.as_tensor(pi, device=dev).to(torch.int32),
@@ -98,18 +104,20 @@ def fixmatch_views(batch_u8, img_size: int, dtype=torch.float32,
     return normalize(weak, dtype), normalize(strong, dtype)
 
 
-# ColorJitter's slots in the order ``orders`` indexes them; slot 3 is the
-# hue, the identity at hue 0 (the only value this view uses)
-_JITTER_OPS = (ops.brightness, ops.contrast, ops.color)
+# ColorJitter's slots in the order ``orders`` indexes them: brightness,
+# contrast, saturation, hue
+_JITTER_OPS = (ops.brightness, ops.contrast, ops.color, ops.adjust_hue)
 
 
 def _color_jitter(x: torch.Tensor, factors: torch.Tensor,
                   orders: torch.Tensor) -> torch.Tensor:
-    """torchvision ColorJitter with hue 0, per image: ``factors`` (B, 3)
-    brightness, contrast, saturation; ``orders`` (B, 4) a permutation of
-    0..3, the op applied at each of the four steps."""
+    """torchvision ColorJitter per image: ``factors`` (B, 3) brightness,
+    contrast, saturation, or (B, 4) with the hue shift last; ``orders``
+    (B, 4) a permutation of 0..3, the slot applied at each of the four
+    steps. Without a hue column slot 3 is the identity (hue 0)."""
+    ops_here = _JITTER_OPS[:factors.shape[1]]
     for i in range(4):
-        for op_id, op in enumerate(_JITTER_OPS):
+        for op_id, op in enumerate(ops_here):
             take = (orders[:, i] == op_id).view(-1, 1, 1, 1)
             x = torch.where(take, op(x, factors[:, op_id]), x)
     return x
@@ -155,11 +163,76 @@ def labeled_train_view(batch_u8, img_size: int, dtype=torch.float32,
 def _labeled_pixels(x: torch.Tensor, img_size: int, hflips, vflips, angles,
                     factors, orders) -> torch.Tensor:
     """The labeled train view before its normalize, in [0, 255]."""
-    b, dev = x.shape[0], x.device
-    hflips = torch.as_tensor(hflips, device=dev).view(b, 1, 1, 1)
-    vflips = torch.as_tensor(vflips, device=dev).view(b, 1, 1, 1)
-    x = torch.where(hflips, ops.hflip(x), x)
-    x = torch.where(vflips, ops.vflip(x), x)
+    dev = x.device
+    x = _flip_where(x, hflips)
+    x = _flip_where(x, vflips, ops.vflip)
     x = _center(ops.rotate(x, torch.as_tensor(angles)), img_size)
     return _color_jitter(x, torch.as_tensor(factors).to(dev, x.dtype),
                          torch.as_tensor(orders, device=dev))
+
+
+def comatch_views(batch_u8, img_size: int, dtype=torch.float32,
+                  generator: torch.Generator | None = None, *, device=None,
+                  weak_flips=None, strong0_flips=None, pi=None, pf=None,
+                  jitters=None, factors=None, orders=None, grays=None,
+                  strong1_flips=None):
+    """(weak, strong-0, strong-1) from one canonical batch (TransformCoMatch).
+
+    weak = center crop → hflip (p=0.5). strong-0 = center crop → hflip
+    (p=0.5) → RandAugmentMC(2, 10) + CutoutAbs(16), the kernel in plain
+    mode. strong-1 = center crop → ColorJitter(0.4, 0.4, 0.4, 0.1) in a
+    random op order, applied with p=0.8 → grayscale (p=0.2) → hflip
+    (p=0.5).
+
+    ``weak_flips``, ``strong0_flips``, ``jitters``, ``grays``,
+    ``strong1_flips`` (B,) bool; ``pi``/``pf`` (see
+    ``sample_randaugment_params``); ``factors`` (B, 4) brightness,
+    contrast and saturation in [0.6, 1.4] and the hue shift in [-0.1,
+    0.1]; ``orders`` (B, 4) override the generator's draws. The jitter's
+    factors act in ``dtype``, as the reference draws them in the image
+    dtype.
+    """
+    x = _center_float(batch_u8, img_size, dtype, device)
+    b, dev = x.shape[0], x.device
+    if (pi is None) != (pf is None):
+        raise ValueError("pass pi with pf")
+    draws = (weak_flips, strong0_flips, pi, jitters, factors, orders, grays,
+             strong1_flips)
+    if generator is None and any(v is None for v in draws):
+        raise ValueError("pass a torch.Generator or every draw explicitly")
+    g = generator
+    gdev = None if g is None else g.device
+    if weak_flips is None:
+        weak_flips = torch.rand(b, generator=g, device=gdev) < 0.5
+    if strong0_flips is None:
+        strong0_flips = torch.rand(b, generator=g, device=gdev) < 0.5
+    if pi is None:
+        pi, pf = sample_randaugment_params(g, b, img_size, img_size)
+    if jitters is None:
+        jitters = torch.rand(b, generator=g, device=gdev) < 0.8
+    if factors is None:
+        u = torch.rand((b, 4), generator=g, device=gdev)
+        factors = torch.cat([0.6 + 0.8 * u[:, :3], 0.2 * u[:, 3:] - 0.1], 1)
+    if orders is None:
+        orders = torch.argsort(torch.rand((b, 4), generator=g, device=gdev),
+                               dim=1)
+    if grays is None:
+        grays = torch.rand(b, generator=g, device=gdev) < 0.2
+    if strong1_flips is None:
+        strong1_flips = torch.rand(b, generator=g, device=gdev) < 0.5
+
+    weak = _flip_where(x, weak_flips)
+    strong0 = randaugment_mc(
+        _flip_where(x, strong0_flips),
+        torch.as_tensor(pi, device=dev).to(torch.int32),
+        torch.as_tensor(pf, device=dev).to(torch.float32))
+    jittered = _color_jitter(x, torch.as_tensor(factors).to(dev, x.dtype),
+                             torch.as_tensor(orders, device=dev))
+    strong1 = torch.where(
+        torch.as_tensor(jitters, device=dev).view(-1, 1, 1, 1), jittered, x)
+    strong1 = torch.where(
+        torch.as_tensor(grays, device=dev).view(-1, 1, 1, 1),
+        ops.grayscale(strong1), strong1)
+    strong1 = _flip_where(strong1, strong1_flips)
+    return (normalize(weak, dtype), normalize(strong0, dtype),
+            normalize(strong1, dtype))

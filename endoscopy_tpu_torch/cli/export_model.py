@@ -4,7 +4,7 @@ Usage::
 
     python -m endoscopy_tpu_torch.cli.export_model --config <yaml> \
         (--weights <params.npz | state.pt> | --checkpoint <dir | latest>) \
-        --out model.pt [--batch N] [--device cuda|cpu]
+        --out model.pt [--batch N] [--quantize int8] [--device cuda|cpu]
 
 ``--weights`` takes either a flat ``.npz`` of the JAX package's flax trees
 (``ckpt/convert.py::write_npz``) or a ``.pt`` holding the port's
@@ -14,8 +14,9 @@ config's ``TRAIN.SAVE_CP``; its weights are the EMA teacher's when
 ``TRAIN.USE_EMA`` and the checkpoint has one, the weights evaluation
 reads. An orbax checkpoint of
 the JAX package goes through ``tools/torch_port/orbax_to_npz.py`` first.
-int8 PTQ (``--quantize``) is a later slice, refused with a pointer to
-ROADMAP.md. ``--platforms`` has no counterpart: one artifact
+``--quantize int8`` stores the kernels as int8 with per-channel scales
+(weight-only PTQ, ``serve/quantize.py``), dequantized once when the
+artifact loads. ``--platforms`` has no counterpart: one artifact
 serves on the card or the CPU. After writing, the artifact is loaded on
 ``--device`` and run once, so a broken export fails here rather than at
 serving time. Serve it with ``endoscopy_tpu_torch.cli.serve``.
@@ -69,24 +70,22 @@ def main(argv=None) -> None:
     parser.add_argument("--batch", type=int, default=None,
                         help="pin the batch dim (default: any size)")
     parser.add_argument("--quantize", default=None, choices=["int8"],
-                        help="weight-only int8 PTQ (not ported yet)")
+                        help="weight-only int8 PTQ")
     parser.add_argument("--device", default=None,
                         help="where the exported artifact is checked "
                              "(default cuda)")
     args = parser.parse_args(argv)
 
-    if args.quantize is not None:
-        parser.error("int8 PTQ is not ported yet (ROADMAP.md)")
     config = get_config(args.config)
     weights = (load_weights(args.weights) if args.weights is not None
                else load_checkpoint_weights(config, args.checkpoint))
     size, n_classes = export_model(config, weights, args.out,
-                                   batch=args.batch)
+                                   batch=args.batch, quantize=args.quantize)
     infer = load_exported(args.out, device=args.device)
     probs = infer(np.zeros((args.batch or 1, size, size, 3), np.uint8))
     print(f"exported {args.weights or args.checkpoint} -> {args.out} "
-          f"(input uint8 [b,{size},{size},3], output f32 [b,{n_classes}]; "
-          f"checked: probs {tuple(probs.shape)})")
+          f"(input uint8 [b,{size},{size},3], output f32 [b,{n_classes}], "
+          f"quantize {args.quantize}; checked: probs {tuple(probs.shape)})")
 
 
 if __name__ == "__main__":

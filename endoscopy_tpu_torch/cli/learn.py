@@ -8,15 +8,16 @@ Usage::
 Two configs run progressive resizing: the model is built once from the
 first config, and the second stage trains the first stage's final weights
 at its own image size. ``TRAIN.IS_SSL`` with ``MODEL.TYPE_SEMI: FixMatch``
-trains FixMatch, ``TRAIN.IS_SSL: False`` the supervised trainer (its plain
-and triplet branches); ``MODEL.PRE_TRAIN_PATH`` grafts a donor's trunk and
+or ``CoMatch`` trains that trainer (both fed by the same labeled and
+unlabeled loaders), ``TRAIN.IS_SSL: False`` the supervised trainer (its
+plain and triplet branches); ``MODEL.PRE_TRAIN_PATH`` grafts a donor's trunk and
 ``MODEL.PRE_TRAIN_RESUME`` resumes a checkpoint (a directory of the port,
 or a JAX train state dumped to ``.npz``). SIGTERM checkpoints at the next
 epoch boundary and exits 143.
 
 pandas (the CSVs) and cv2 (the JPEGs) are imported only by
 :func:`build_data`, so a caller that brings its own loaders needs neither.
-Not ported yet (ROADMAP.md): CoMatch, SemiFormer and ``--trainer ezbm``,
+Not ported yet (ROADMAP.md): SemiFormer and ``--trainer ezbm``,
 ``DATA.LOADER: native`` and ``--preview``.
 """
 
@@ -83,7 +84,11 @@ def make_trainer(config, model, device=None):
         from endoscopy_tpu_torch.train.fixmatch import FixMatch
         return FixMatch(model=model, opt_func=config.TRAIN.OPT_NAME,
                         device=device)
-    if type_semi in ("CoMatch", "SemiFormer"):
+    if type_semi == "CoMatch":
+        from endoscopy_tpu_torch.train.comatch import CoMatch
+        return CoMatch(model=model, opt_func=config.TRAIN.OPT_NAME,
+                       device=device)
+    if type_semi == "SemiFormer":
         raise _not_ported(f"the {type_semi} trainer")
     raise ValueError(f"unknown TYPE_SEMI {type_semi}")
 

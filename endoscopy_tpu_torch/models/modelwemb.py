@@ -5,8 +5,8 @@
 logits (``fc``), the pooled backbone features, and a 2-layer projection to
 ``low_dim`` (Dense(3 · low_dim) → LeakyReLU(0.1) → Dense(low_dim) →
 L2-normalize with eps 0, ``head_emb``). Both heads run in float32 with
-autocast off, as the flax ones do. The triplet trainer uses it, and so
-will CoMatch and EZBM.
+autocast off, as the flax ones do. The supervised trainer's triplet
+branch and the CoMatch trainer use it; EZBM is not ported yet.
 """
 
 from __future__ import annotations

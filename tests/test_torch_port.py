@@ -4,14 +4,17 @@ The cases are the ``check_*`` functions of ``tests/torch_port_checks/``, one
 module for each part of the port: ``models`` (ResNet, heads, the flax →
 torch weight conversion), ``randaugment`` (the plain RandAugment and the
 kernel wrapper against the Pallas kernel in interpret mode), ``views``,
-``serve`` (the serving slice end to end over HTTP), ``train`` (the FixMatch
+``serve`` (the serving slice end to end over HTTP, int8 export,
+``cli/infer.py``), ``train`` (the FixMatch
 training step: losses, schedules, optimizers, EMA, BN statistics, the
 labeled view, one step, GRAD_ACCUM and IS_FREEZE), ``learn`` (``cli/learn.py``:
 manifests, loaders, metrics, evaluation, checkpoints, a JAX checkpoint's
 resume, transfer, ``fit`` and the CLI), ``supervised`` (the supervised
 trainer: fresh weights, checkpoint order, class weights, the triplet loss,
 the heads, Mixup/CutMix, its steps, ``fit``, the ``evaluate`` and
-``pseudo_label`` CLIs) and ``nojax`` (the import and device rules). This one test runs every case and reports every failure
+``pseudo_label`` CLIs), ``comatch`` (the CoMatch trainer: ``grayscale``,
+``adjust_hue``, ``comatch_views``, its steps and queue, ``run_config``, the
+transfer into ``ModelwEmb``) and ``nojax`` (the import and device rules). This one test runs every case and reports every failure
 with its traceback. It is one test item so that the counts of the JAX
 suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
 within 2, stay the JAX suite's.
@@ -21,10 +24,11 @@ import traceback
 
 import torch
 
-from torch_port_checks import (learn, models, nojax, randaugment, serve,
-                               supervised, train, views)
+from torch_port_checks import (comatch, learn, models, nojax, randaugment,
+                               serve, supervised, train, views)
 
-MODULES = (models, randaugment, views, serve, train, learn, supervised, nojax)
+MODULES = (models, randaugment, views, serve, train, learn, supervised,
+           comatch, nojax)
 
 
 def _cases():

@@ -106,8 +106,7 @@ def check_npz_roundtrip():
 
 def check_unported_models_point_to_roadmap():
     """An unported backbone and the margin head raise; CoMatch's model,
-    ``ModelwEmb``, is built (its trainer is what stays refused, in
-    ``cli/learn.py::make_trainer``)."""
+    ``ModelwEmb``, is built."""
     for override in ({"MODEL": {"NAME": "densenet121"}},
                      {"MODEL": {"MARGIN": "ArcFace"}}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -28,6 +28,7 @@ from endoscopy_tpu_torch.cli import learn
 from endoscopy_tpu_torch.models import build_model
 from endoscopy_tpu_torch.config.loader import default_config
 from endoscopy_tpu_torch.serve import export, server
+from endoscopy_tpu_torch.train.comatch import CoMatch
 from endoscopy_tpu_torch.train.common import BaseTrainer
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
 from endoscopy_tpu_torch.train.supervised import SupLearning
@@ -52,7 +53,7 @@ NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "endoscopy_tpu",
 
 def check_package_imports_no_jax():
     mods = _modules() + ["torch_port_checks.path_c", "torch_port_checks.path_d",
-                         "torch_port_checks.path_e"]
+                         "torch_port_checks.path_e", "torch_port_checks.path_f"]
     assert {"endoscopy_tpu_torch.ops.randaugment_kernel",
             "endoscopy_tpu_torch.cli.learn",
             "endoscopy_tpu_torch.ckpt.io",
@@ -61,7 +62,11 @@ def check_package_imports_no_jax():
             "endoscopy_tpu_torch.aug.mixup",
             "endoscopy_tpu_torch.losses.triplet",
             "endoscopy_tpu_torch.cli.evaluate",
-            "endoscopy_tpu_torch.cli.pseudo_label"} <= set(mods)
+            "endoscopy_tpu_torch.cli.pseudo_label",
+            "endoscopy_tpu_torch.serve.quantize",
+            "endoscopy_tpu_torch.cli.infer",
+            "endoscopy_tpu_torch.ssl_state.comatch_state",
+            "endoscopy_tpu_torch.train.comatch"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -98,18 +103,19 @@ def check_entry_points_need_cuda_unless_cpu_is_asked():
     with tempfile.TemporaryDirectory() as tmp, \
             mock.patch.object(torch.cuda, "is_available", lambda: False):
         for entry in ("resolve_device", "eval_view", "fixmatch_views",
-                      "labeled_train_view", "make_infer_fn", "load_exported",
-                      "make_server", "FixMatch", "BaseTrainer",
-                      "SupLearning", "prepare_trainer", "restore_checkpoint"):
+                      "comatch_views", "labeled_train_view", "make_infer_fn",
+                      "load_exported", "make_server", "FixMatch", "CoMatch",
+                      "BaseTrainer", "SupLearning", "prepare_trainer",
+                      "restore_checkpoint"):
             _entry_needs_cuda(Path(tmp), entry)
         _clis_need_cuda(Path(tmp))
 
 
 def _clis_need_cuda(tmp_path):
-    """``cli/evaluate.py`` and ``cli/pseudo_label.py`` without
-    ``--device`` raise before they read a file (``supervised.py`` runs
-    both with ``--device cpu``)."""
-    from endoscopy_tpu_torch.cli import evaluate, pseudo_label
+    """``cli/evaluate.py``, ``cli/pseudo_label.py`` and ``cli/infer.py``
+    without ``--device`` raise before they read a file (``supervised.py``
+    and ``serve.py`` run them with ``--device cpu``)."""
+    from endoscopy_tpu_torch.cli import evaluate, infer, pseudo_label
 
     cfg = tmp_path / "sup.yaml"
     cfg.write_text("MODEL:\n  NAME: resnet_tiny\nTRAIN:\n  IS_SSL: False\n")
@@ -118,6 +124,8 @@ def _clis_need_cuda(tmp_path):
                                              "--out", "o.csv"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(["--config", str(cfg), "--checkpoint", "ck", *extra])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer.main(["--model", "m.pt", "--images", "in.csv", "--out", "o.csv"])
 
 
 def _entry_needs_cuda(tmp_path, entry):
@@ -137,6 +145,8 @@ def _entry_needs_cuda(tmp_path, entry):
         "eval_view": lambda **kw: views.eval_view(_u8(), 24, **kw),
         "fixmatch_views": lambda **kw: views.fixmatch_views(
             _u8(), 24, generator=torch.Generator(), **kw),
+        "comatch_views": lambda **kw: views.comatch_views(
+            _u8(), 24, generator=torch.Generator(), **kw),
         "labeled_train_view": lambda **kw: views.labeled_train_view(
             _u8(), 24, generator=torch.Generator(), **kw),
         "make_infer_fn": lambda **kw: export.make_infer_fn(model, 24, **kw),
@@ -145,6 +155,7 @@ def _entry_needs_cuda(tmp_path, entry):
             path, host="127.0.0.1", port=0, buckets=(1,), warmup=False,
             **kw).server_close(),
         "FixMatch": lambda **kw: FixMatch(model, "Adam", **kw),
+        "CoMatch": lambda **kw: CoMatch(model, "Adam", **kw),
         "SupLearning": lambda **kw: SupLearning(model, "Adam", **kw),
         "BaseTrainer": lambda **kw: BaseTrainer(model, "Adam", **kw),
         # what cli/learn.py's run_config runs before fit, and --device

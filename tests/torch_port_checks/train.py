@@ -457,10 +457,12 @@ def _compare_step(port, jax_out, got, opt, frozen=(), start=None):
                    _jax_base().state if start is None else start)
 
 
-def _compare_state(port, jstate, opt, frozen, start):
+def _compare_state(port, jstate, opt, frozen, start, l2_bound=None):
     """Parameters, BN statistics and EMA after one step from the JAX
     state ``start``, at ``_compare_step``'s bounds. Both took one update,
-    whatever GRAD_ACCUM."""
+    whatever GRAD_ACCUM. With ``l2_bound`` each tensor's update is held
+    to that relative L2 error in place of the optimizer's element bound
+    (an Adam update after the first, no longer about ``-lr sign(g)``)."""
     assert port.state.step == int(jstate.step) == int(start.step) + 1
     init = _port_state(start.params, start.batch_stats)
     want = _port_state(jstate.params, jstate.batch_stats)
@@ -476,6 +478,9 @@ def _compare_state(port, jstate, opt, frozen, start):
             _close(now[k].numpy(), w.numpy(), rtol=1e-4, atol=1e-6, what=k)
         elif k.startswith(frozen):
             assert torch.equal(now[k], init[k]) and not d_want.any(), k
+        elif l2_bound is not None:
+            err = np.linalg.norm(d_got - d_want) / np.linalg.norm(d_want)
+            assert err <= l2_bound, (k, err)
         elif opt == "SGD":
             err = np.abs(d_got - d_want).max()
             assert err <= 0.1 * np.abs(d_want).max(), (k, err)

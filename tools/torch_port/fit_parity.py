@@ -1,14 +1,16 @@
 """Both packages' ``fit`` from the same weights, on the CPU: a learning check.
 
-    python tools/torch_port/fit_parity.py [--trainers fixmatch supervised]
-        [--epochs 8] [--seeds 0 1] [--out fit_parity.json]
+    python tools/torch_port/fit_parity.py
+        [--trainers fixmatch supervised comatch] [--epochs 8] [--seeds 0 1]
+        [--out fit_parity.json]
 
 For each trainer and seed, the JAX package's trainer and the port's start
 from the same converted weights (the JAX trainer's initial state, seeded
 by ``TRAIN.SEED``) and run ``fit`` on the same synthetic data
 (``endoscopy_tpu/data/synthetic.py``: four colour-separable classes, JPEGs
 and CSVs both packages read; ``resnet_tiny`` at 32 px, B=8, MU=2, float32,
-Adam, EMA decay 0.9, an evaluation every epoch). After each epoch it
+Adam, EMA decay 0.9, an evaluation every epoch; CoMatch under
+``ModelwEmb`` with LOW_DIM 64 and ``LAMBDA_C`` 2). After each epoch it
 prints the train loss and, for both packages, the valid loss and
 macro-F1 of the EMA teacher and of the student, both in eval mode.
 
@@ -75,8 +77,11 @@ def overrides(kind: str, data: tuple, epochs: int, seed: int) -> dict:
         "DATA": {"PATH": img_root, "ANNO": anno, "UNANNO_PATH": unl_root,
                  "UNANNO": unanno, "MOCKUP_SSL": True, "IMG_SIZE": 32,
                  "BATCH_SIZE": 8, "MU": 2, "NUM_WORKERS": 1},
-        "MODEL": {"NAME": "resnet_tiny", "NUM_CLASSES": 4},
-        "TRAIN": {"IS_SSL": kind == "fixmatch", "DTYPE": "float32",
+        "MODEL": {"NAME": "resnet_tiny", "NUM_CLASSES": 4,
+                  "TYPE_SEMI": "CoMatch" if kind == "comatch" else "FixMatch",
+                  "LOW_DIM": 64},
+        "TRAIN": {"IS_SSL": kind != "supervised", "DTYPE": "float32",
+                  "LAMBDA_C": 2.0,
                   "OPT_NAME": "Adam", "EPOCHS": epochs, "FREQ_EVAL": 1,
                   "EVAL_STEP": 8, "USE_EMA": True, "EMA_DECAY": 0.9,
                   "SAVE_CP": "", "LOG_DIR": "", "MESH_DATA": 1,
@@ -132,7 +137,7 @@ def run(kind: str, data: tuple, epochs: int, seed: int) -> list:
     with mock.patch.object(jax_state, "create_train_state",
                            lambda model, *a, **k: create(_JitInit(model), *a,
                                                          **k)):
-        if kind == "fixmatch":
+        if kind != "supervised":
             jtrainer.get_config(jcfg, labeled_targets=jdata[3])
         else:
             jtrainer.get_config(jcfg, cls_num_list=jdata[2],
@@ -173,7 +178,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trainers", nargs="+", default=["fixmatch",
                                                           "supervised"],
-                        choices=["fixmatch", "supervised"])
+                        choices=["fixmatch", "supervised", "comatch"])
     parser.add_argument("--epochs", type=int, default=8)
     parser.add_argument("--seeds", type=int, nargs="+", default=[0])
     parser.add_argument("--out", default=None, help="write the rows as JSON")
