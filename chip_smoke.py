@@ -149,6 +149,38 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    3 steps of ``kaggle_semisupervised_real_1_1``'s fields (SGD, MU=7, 704
    images a step).
 
+10. path G: the SemiFormer trainer (``endoscopy_tpu_torch/train/
+   semiformer.py``, the dual-head Conformer-Ti of ``models/conformer.py``;
+   configs and helpers in ``tests/torch_port_checks/path_g.py``) on
+   ``configs/kaggle_semisupervised_real_2.yaml``'s fields (224 px, B=32,
+   MU=6: 416 images a FixMatch-phase step, Adam, step schedule, EMA, class
+   weights, THRES 0.7, LAMBDA_U 2, GRAD_ACCUM 1). G1: for three seeds, one
+   warmup step and one FixMatch-phase SGD step at 112 px, B=4, MU=1 from a
+   seeded state (each conv block's last BN scale 0.1, both heads' kernels
+   ×4: ``path_g.HEAD_SCALE``) with the same draws, float32 on the card on
+   both devices' views against the CPU's float32 step (path F1's bounds,
+   with a float64 reference), bf16 against it at 0.02 and 0.12, THRES in
+   the widest gap of the conv head's weak max-probabilities, and a bf16
+   control whose strong view is the weak one that each of the two bounds
+   must refuse.
+   G2: ``train_one`` in the FixMatch phase at full width, 3 warm-up and 12
+   timed steps: step ms, images/s, the FLOP share (the counter counts a
+   linear layer once per row and attention's two products), peak memory,
+   one crop-fused kernel launch a step (``pad=28``), the kernel against
+   its plain version on the step's own strong-view input (0.0), a split
+   (labeled view, ``fixmatch_views``, the kernel, forward+backward,
+   optimizer+EMA, each with its host enqueue) and the warmup step (32
+   images). G3: ``kaggle_supervised_paper.yaml``'s Conformer (23 classes,
+   224 px) one epoch through ``run_config`` on path D's stage-2 images,
+   its checkpoint as real_2's ``PRE_TRAIN_PATH`` (the trunk bit-identical,
+   both 6-class heads fresh), real_2 cut to 3 epochs of 8 steps
+   (``EVAL_STEP_SUP`` 2: epoch 1 the warmup sweep of the labeled set)
+   with an evaluation and a checkpoint each and EMA decay 0.9: launches 0
+   in epoch 1 and one a step after it, a finite train loss, ``epoch_1..3``,
+   the evaluation's probabilities ``softmax(conv + trans)`` of a direct
+   EMA forward; then 3 FixMatch-phase steps of
+   ``kaggle_semisupervised_real_2_1.yaml``'s fields (112 px, 312 images).
+
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line and ``{"ok": true, "device": {...}}``.
 """
@@ -167,7 +199,8 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-from torch_port_checks import path_c, path_d, path_e, path_f  # noqa: E402
+from torch_port_checks import (path_c, path_d, path_e, path_f,  # noqa: E402
+                               path_g)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 
@@ -203,6 +236,10 @@ TRIPLET_WARMUP_STEPS, TRIPLET_TIMED_STEPS = 3, 8  # path E2
 E3_VIEW_TOL = 1e-5
 TRAIN_TOL_F32_LOSS = 1e-4
 TRAIN_TOL_BF16_LOSS, TRAIN_TOL_BF16_UPDATE = 0.02, 0.5
+# path G1's bf16 bound on the updates: sound steps read 0.023..0.053 on the
+# H100 (seeds 0-2, warmup and FixMatch phase), the weak-as-strong control
+# 0.18..0.52, so 0.5 let the control through on the updates alone
+G1_TOL_BF16_UPDATE = 0.12
 
 
 # 64 concurrent raw requests from one client process: argv = port, .npy
@@ -732,14 +769,22 @@ def phase_train_correctness(seed: int):
 
 
 def train_flops_per_image(model, img: int) -> int:
-    """Model FLOPs of one training step per image from the convolution and
-    linear shapes: the forward, every layer's weight gradient and every
-    layer's input gradient but the stem's (its input needs none); 2 FLOPs
-    per multiply-add. BN, ReLU, pooling and the loss are not counted."""
+    """Model FLOPs of one training step per image from the convolution,
+    linear and attention shapes: the forward, every layer's weight
+    gradient and every layer's input gradient but the stem's (the first
+    convolution: its input needs none); 2 FLOPs per multiply-add. A linear
+    layer counts once per row it sees (one per image in a ResNet's head,
+    one per token in a ViT block); the Conformer's attention adds its two
+    batched products, ``q·kᵀ`` and ``attn·v`` (each ``heads · n² ·
+    head_dim`` multiply-adds; their gradients, two products each, make the
+    factor 3 hold for them too). BN, LN, activations, softmax, pooling
+    and the loss are not counted."""
     import copy
 
     import torch
     from torch import nn
+
+    from endoscopy_tpu_torch.models.conformer import Attention
 
     macs = {}
 
@@ -747,27 +792,32 @@ def train_flops_per_image(model, img: int) -> int:
         def hook(m, inp, out):
             if isinstance(m, nn.Conv2d):
                 per = (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
-                macs[name] = out[0].numel() * per
-            else:
-                macs[name] = m.in_features * m.out_features
+                macs[name] = out.numel() * per
+            elif isinstance(m, nn.Linear):
+                macs[name] = out.numel() * m.in_features
+            else:  # Attention: q·kᵀ and attn·v over (b, heads, n, head_dim)
+                b, n, c = inp[0].shape
+                macs[name + ".products"] = 2 * b * n * n * c
         return hook
 
     probe = copy.deepcopy(model).cpu().float().eval()
     for name, m in probe.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, Attention)):
             m.register_forward_hook(count(name))
     with torch.no_grad():
         probe(torch.zeros(1, 3, img, img))
     fwd = sum(macs.values())
-    return 2 * (3 * fwd - macs["backbone.conv1"])
+    stem = next(iter(macs))  # the first layer to run
+    return 2 * (3 * fwd - macs[stem])
 
 
-def timed_train_one(trainer, config, seed: int, path: str):
-    """``train_one`` on ``step_loaders``: ``TRAIN_WARMUP_STEPS`` warm-up
-    steps, then ``TRAIN_TIMED_STEPS`` steps with the kernel's count at 0,
-    CUDA events between steps and the peak memory. Fails unless the kernel
-    ran once a step and the mean loss is finite. Returns ``(step ms array,
-    median, wall s, warm-up s, peak bytes, launches)``."""
+def timed_train_one(trainer, config, seed: int, path: str, epoch: int = 0):
+    """``train_one(epoch)`` on ``step_loaders``: ``TRAIN_WARMUP_STEPS``
+    warm-up steps, then ``train_one(epoch + 1)``'s ``TRAIN_TIMED_STEPS``
+    steps with the kernel's count at 0, CUDA events between steps and the
+    peak memory. Fails unless the kernel ran once a step and the mean loss
+    is finite. Returns ``(step ms array, median, wall s, warm-up s, peak
+    bytes, launches)``."""
     import torch
 
     from endoscopy_tpu_torch.ops import randaugment_kernel as rk
@@ -776,7 +826,7 @@ def timed_train_one(trainer, config, seed: int, path: str):
     trainer.get_dataloader(step_loaders(config, seed, marks), None)
     config.TRAIN.EVAL_STEP = TRAIN_WARMUP_STEPS
     t0 = time.perf_counter()
-    trainer.train_one(0)
+    trainer.train_one(epoch)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
@@ -786,7 +836,7 @@ def timed_train_one(trainer, config, seed: int, path: str):
     torch.cuda.reset_peak_memory_stats()
     rk.randaugment_mc.launches = 0
     t0 = time.perf_counter()
-    meter = trainer.train_one(1)
+    meter = trainer.train_one(epoch + 1)
     end = torch.cuda.Event(enable_timing=True)
     end.record()
     torch.cuda.synchronize()
@@ -1720,9 +1770,10 @@ def phase_serve_int8(seed: int, out_dir: Path):
             "max_abs_err_f32_cpu": err32, "bucket32_ms": ms}
 
 
-def _comatch_errors(got, ref):
-    """(worst relative error of loss, lx, lu, lc where the reference is
-    not 0, relative L2 error of the updates, worst tensor)."""
+def _stats_errors(got, ref):
+    """(worst relative error of a step's statistics, e.g. CoMatch's loss,
+    lx, lu, lc, where the reference is not 0, relative L2 error of the
+    updates, worst tensor)."""
     (stats, upd), (ref_stats, ref_upd) = got, ref
     rel = max(abs(a - b) / abs(b) for a, b in zip(stats, ref_stats) if b)
     return (rel, *path_c.update_errors(upd, ref_upd))
@@ -1797,7 +1848,7 @@ def comatch_step_matches_cpu(seed: int):
     sens = {dev: path_c.update_errors(steps[dev, "cpu"][1],
                                       steps[dev, "cuda"][1])[0]
             for dev in ("cpu", "cuda")}
-    rel = max(_comatch_errors(steps["cuda", v], steps["cpu", v])[0]
+    rel = max(_stats_errors(steps["cuda", v], steps["cpu", v])[0]
               for v in ("cuda", "cpu"))
     l2s = {v: path_c.update_errors(steps["cuda", v][1], steps["cpu", v][1])
            for v in ("cuda", "cpu")}
@@ -1831,7 +1882,7 @@ def comatch_step_matches_cpu(seed: int):
     ref32 = steps["cpu", "cpu"]
     for alter in (None, _strong1_as_strong0):
         got = step("cuda", views16, alter)
-        rel16, l2, worst = _comatch_errors(got, ref32)
+        rel16, l2, worst = _stats_errors(got, ref32)
         what = "bf16" if alter is None else "bf16 control (strong-1 as strong-0)"
         print(f"path F1, seed {seed}: {what} on the card vs float32 on the "
               f"CPU: [loss, lx, lu, lc] {got[0]} vs {ref32[0]}; worst "
@@ -2055,6 +2106,410 @@ def phase_comatch(seed: int, out_dir: Path):
     return out
 
 
+def _weak_as_strong(x, w, s):
+    return x, w, w  # as if the kernel had left the strong view undone
+
+
+def semiformer_step_matches_cpu(seed: int):
+    """Path G1 for one seed: one warmup step and one FixMatch-phase step
+    (SGD) of Conformer-Ti at 112 px, B=4, MU=1, from one seeded state
+    (``path_g.seeded_model``'s conditioning) with the same draws, on the
+    card against the CPU's float32 step, both devices on both devices'
+    views (path E3's method)."""
+    config = path_g.step_config()
+    model = path_g.seeded_model(config, seed, PART1_RESIDUAL_GAMMA,
+                                path_g.HEAD_SCALE)
+    batch = path_c.canonical_batches(config, seed, 1)[0]
+    t = batch[1]
+    views = {dev: path_g.step_views(config, model, batch, dev, seed)
+             for dev in ("cuda", "cpu")}
+    view_errs = [float((a.cpu() - b).abs().max())
+                 for a, b in zip(views["cuda"], views["cpu"])]
+    config.TRAIN.DTYPE = "bfloat16"
+    views16 = path_g.step_views(config, model, batch, "cuda", seed)
+    # THRES in the widest gap between two of the four weak max-
+    # probabilities (the conv head's) that leaves the same rows above it
+    # in the CPU's float32 forward and the card's bf16 forward
+    p16 = path_g.weak_max_probs(config, model, views16, "cuda", seed)
+    config.TRAIN.DTYPE = "float32"
+    p32 = path_g.weak_max_probs(config, model, views["cpu"], "cpu", seed)
+    order = p32.sort(descending=True).values
+    thres, margin = None, 0.0
+    for k in (1, 2, 3):
+        th = float(order[k - 1] + order[k]) / 2
+        m = min(float((p32 - th).abs().min()), float((p16 - th).abs().min()))
+        if int((p16 >= th).sum()) == k and m > margin:
+            thres, margin = th, m
+    print(f"path G1, seed {seed}: the views (labeled, weak, strong) on the "
+          f"card vs the CPU's on the same draws: max_abs_err "
+          f"{[f'{e:.3e}' for e in view_errs]} (bound {E3_VIEW_TOL}); weak "
+          f"max-probabilities, float32 on the CPU {p32.tolist()}, bf16 on the "
+          f"card {p16.tolist()}; THRES {thres}, margin {margin:.3e}",
+          flush=True)
+    if max(view_errs) > E3_VIEW_TOL:
+        fail("path G1: a view differs on the card")
+    if thres is None:
+        fail("path G1: no THRES splits the weak rows alike in float32 and "
+             "bf16")
+    config.TRAIN.THRES = thres
+
+    def step(dev, v, alter=None):
+        return path_g.step_once(config, model, v, t, dev, seed, alter)
+
+    out = {"view_max_abs_err": max(view_errs), "thres": thres,
+           "margin": margin}
+    for phase, n in (("warmup", 1), ("fixmatch", 3)):
+        vs = {v: views[v][:n] for v in views}
+        steps = {(dev, v): step(dev, vs[v]) for dev in ("cpu", "cuda")
+                 for v in ("cuda", "cpu")}
+        upd64 = path_g.step_float64(config, model, vs["cuda"], t, seed)
+        ref = steps["cpu", "cuda"]
+        cpu_l2, cpu_worst = path_c.update_errors(ref[1], upd64)
+        sens = {dev: path_c.update_errors(steps[dev, "cpu"][1],
+                                          steps[dev, "cuda"][1])[0]
+                for dev in ("cpu", "cuda")}
+        rel = max(_stats_errors(steps["cuda", v], steps["cpu", v])[0]
+                  for v in ("cuda", "cpu"))
+        l2s = {v: path_c.update_errors(steps["cuda", v][1],
+                                       steps["cpu", v][1])
+               for v in ("cuda", "cpu")}
+        l2_64 = path_c.update_errors(steps["cuda", "cuda"][1], upd64)[0]
+        bounds = {"cpu": 3 * cpu_l2 + 1e-3,
+                  "cuda": 3 * max(cpu_l2, *sens.values()) + 1e-3}
+        print(f"path G1, seed {seed}, {phase} step: float32, card vs CPU: "
+              f"stats {steps['cuda', 'cuda'][0]} vs {ref[0]}, worst "
+              f"relative error on either view {rel:.3e} (bound "
+              f"{TRAIN_TOL_F32_LOSS}); SGD updates relative L2 on the CPU's "
+              f"view {l2s['cpu'][0]:.3e} (bound {bounds['cpu']:.3e}: the "
+              f"CPU's float32 step is {cpu_l2:.3e} from float64, worst "
+              f"tensor {cpu_worst:.3e}), on the card's {l2s['cuda'][0]:.3e} "
+              f"(worst tensor {l2s['cuda'][1]:.3e}; bound "
+              f"{bounds['cuda']:.3e}: a view's last bits move the CPU's step "
+              f"by {sens['cpu']:.3e}, the card's by {sens['cuda']:.3e}); the "
+              f"card against float64 {l2_64:.3e}", flush=True)
+        if phase == "fixmatch" and not 0.0 < ref[0][3] < 1.0:
+            fail(f"path G1: mask mean {ref[0][3]} is not strictly between "
+                 "0 and 1")
+        if rel > TRAIN_TOL_F32_LOSS or any(l2s[v][0] > bounds[v]
+                                           for v in bounds):
+            fail(f"path G1 float32 {phase} step on the card differs from "
+                 "the CPU's")
+        res = {"float32": {"loss_rel_err": rel,
+                           "update_l2_err": l2s["cuda"][0],
+                           "update_l2_err_cpu_view": l2s["cpu"][0],
+                           "update_l2_err_vs_f64": l2_64,
+                           "cpu_f32_vs_f64_l2": cpu_l2,
+                           "view_sensitivity_l2": sens}}
+        # bf16 on the card's bf16 views against the CPU's float32 step on
+        # its own views; in the FixMatch phase also the control that the
+        # check must refuse
+        config.TRAIN.DTYPE = "bfloat16"
+        ref32 = steps["cpu", "cpu"]
+        for alter in (None, _weak_as_strong) if n == 3 else (None,):
+            got = step("cuda", views16[:n], alter)
+            rel16, l2, worst = _stats_errors(got, ref32)
+            what = "bf16" if alter is None else "bf16 control (weak as strong)"
+            print(f"path G1, seed {seed}, {phase} step: {what} on the card vs "
+                  f"float32 on the CPU: stats {got[0]} vs {ref32[0]}; worst "
+                  f"relative error {rel16:.3e} (bound {TRAIN_TOL_BF16_LOSS}); "
+                  f"SGD updates relative L2 error {l2:.3e} (bound "
+                  f"{G1_TOL_BF16_UPDATE}), worst tensor {worst:.3e}",
+                  flush=True)
+            within = (rel16 <= TRAIN_TOL_BF16_LOSS, l2 <= G1_TOL_BF16_UPDATE)
+            if alter is None and not all(within):
+                fail(f"path G1 bf16 {phase} step on the card differs from "
+                     "the CPU's")
+            if alter is not None and any(within):
+                fail("path G1 bf16 check: a bound passes a step without the "
+                     "strong view")
+            res["bfloat16" if alter is None else "bfloat16_control"] = {
+                "loss_rel_err": rel16, "update_l2_err": l2}
+        config.TRAIN.DTYPE = "float32"
+        out[phase] = res
+    return out
+
+
+def semiformer_full(seed: int):
+    """Path G2: ``train_one`` in the FixMatch phase at real_2's full
+    width, 416 images a step at 224 px, and the warmup step."""
+    from unittest import mock
+
+    import torch
+
+    from endoscopy_tpu_torch.aug import views
+    from endoscopy_tpu_torch.aug.randaugment import randaugment_mc_plain
+    from endoscopy_tpu_torch.aug.views import fixmatch_views, labeled_train_view
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+    from endoscopy_tpu_torch.train.semiformer import SemiFormer
+
+    config = path_c.train_config(path_g.REAL_2)
+    img = int(config.DATA.IMG_SIZE)
+    b, bu = int(config.DATA.BATCH_SIZE), int(config.DATA.BATCH_SIZE) * int(config.DATA.MU)
+    images = path_g.images_per_step(config)
+    model = path_g.seeded_model(config, seed)
+    flops = train_flops_per_image(model, img) * images
+    trainer = SemiFormer(model, config.TRAIN.OPT_NAME, device="cuda")
+    trainer.get_config(config, labeled_targets=path_c.labeled_targets(config, seed))
+    step_ms, med, wall_s, warm_s, peak, launches, loss = timed_train_one(
+        trainer, config, seed, "G2", epoch=trainer.eval_step_sup)
+    steps = TRAIN_TIMED_STEPS
+    share = flops / (med * 1e-3) / H100_BF16_FLOPS
+    print(f"path G2: {steps} FixMatch-phase steps of {images} images (B={b}, "
+          f"B*MU={bu}, {img} px, bf16, GRAD_ACCUM "
+          f"{config.TRAIN.GRAD_ACCUM}) after {TRAIN_WARMUP_STEPS} warm-up "
+          f"steps ({warm_s:.2f} s); step ms (CUDA events between steps) "
+          f"median {med:.3f}, min {step_ms.min():.3f}, max "
+          f"{step_ms.max():.3f}, all {np.round(step_ms, 3).tolist()}; wall "
+          f"{wall_s:.3f} s, {images * steps / wall_s:.1f} images/s; mean "
+          f"loss {loss:.4f}; randaugment_mc launches {launches}; peak memory "
+          f"{peak} B; model FLOPs per step {flops} ({flops / images:.4e} per "
+          f"image: convolutions, linears per row, attention's two products; "
+          f"forward + both gradients), {flops / (med * 1e-3) / 1e12:.2f} "
+          f"TFLOP/s, {share:.4f} of the dense bf16 peak", flush=True)
+
+    # the kernel's own input in one more step (crop-fused, the reflect pad
+    # in its load), against the plain version
+    seen = []
+    kernel = views.randaugment_mc
+
+    def recording(x, pi, pf, *a, **k):
+        seen.append((x.clone(), pi.clone(), pf.clone(), k))
+        return kernel(x, pi, pf, *a, **k)
+
+    x_u8, t, u_u8 = path_c.canonical_batches(config, seed, 1)[0]
+    x_dev, u_dev = torch.from_numpy(x_u8).cuda(), torch.from_numpy(u_u8).cuda()
+    t_dev = torch.from_numpy(t).cuda()
+    w = trainer.class_weights
+    with mock.patch.object(views, "randaugment_mc", recording):
+        trainer._train_step(x_dev, t_dev, u_dev, w)
+    xk, pi, pf, kw = seen[0]
+    got = rk.randaugment_mc(xk, pi, pf, **kw)
+    ref = randaugment_mc_plain(xk, pi, pf, **kw)
+    err = float((got.float() - ref.float()).abs().max())
+    kern_ms = cuda_ms(lambda: rk.randaugment_mc(xk, pi, pf, **kw), iters=50,
+                      warmup=3)
+    plain_ms = cuda_ms(lambda: randaugment_mc_plain(xk, pi, pf, **kw),
+                       iters=2, warmup=1)
+    bytes_moved = 2 * xk.numel() * xk.element_size() + pi.numel() * 4 + pf.numel() * 4
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    print(f"path G2: randaugment_mc crop-fused (crop {kw.get('crop_size')}, "
+          f"pad {kw.get('pad')}) on the step's strong-view input "
+          f"{tuple(xk.shape)} {xk.dtype}: kernel vs plain version "
+          f"max_abs_err={err} (tol 0.0); kernel {kern_ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bytes_moved} B at "
+          f"{HBM_BYTES_PER_S:.3g} B/s)", flush=True)
+    if err != 0.0 or kw.get("pad") != int(img * 0.125):
+        fail(f"path G2: the kernel differs from the plain version ({err}) "
+             f"or ran without the fused pad ({kw})")
+
+    # the step's parts at its shapes, and the warmup step (B images)
+    g = trainer.generator
+
+    def lab_view():
+        labeled_train_view(x_dev, img, torch.bfloat16, g, device="cuda")
+
+    def fm_views():
+        fixmatch_views(u_dev, img, torch.bfloat16, g, device="cuda")
+
+    v = trainer._views(x_dev, u_dev)
+
+    def fwd_bwd():
+        trainer._forward_backward(*v, t_dev, w)
+
+    def warmup():
+        trainer._warmup_step(x_dev, t_dev, w)
+
+    split = {}
+    for name, fn, iters in (("labeled_view", lab_view, 10),
+                            ("fixmatch_views", fm_views, 10),
+                            ("kernel", lambda: rk.randaugment_mc(
+                                xk, pi, pf, **kw), 20),
+                            ("fwd_bwd", fwd_bwd, 3),
+                            ("opt_ema", trainer._apply_grads, 5),
+                            ("warmup_step", warmup, 5)):
+        split[name] = {"ms": cuda_ms(fn, iters=iters),
+                       "host_ms": host_ms(fn)}
+    parts = ("labeled_view", "fixmatch_views", "fwd_bwd", "opt_ema")
+    print("path G2 split (ms, CUDA events / host enqueue): " + "; ".join(
+        f"{k} {s['ms']:.4f} / {s['host_ms']:.4f}" for k, s in split.items())
+        + f"; sum of {', '.join(parts)} "
+        f"{sum(split[k]['ms'] for k in parts):.3f} against the step's "
+        f"{med:.3f}", flush=True)
+    return {"step_ms_median": med, "step_ms_min": float(step_ms.min()),
+            "step_ms_max": float(step_ms.max()),
+            "images_per_s": images * steps / wall_s, "peak_bytes": peak,
+            "grad_accum": int(config.TRAIN.GRAD_ACCUM),
+            "flops_per_step": flops, "flop_share": share,
+            "launches_per_step": launches / steps, "kernel_ms": kern_ms,
+            "kernel_max_abs_err": err, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "split": split}
+
+
+def semiformer_learn(seed: int, out_dir: Path, data2):
+    """Path G3: ``kaggle_supervised_paper``'s Conformer for one epoch
+    through ``run_config``, its checkpoint grafted as real_2's
+    ``PRE_TRAIN_PATH``, real_2 across ``EVAL_STEP_SUP``, then 3 steps of
+    real_2_1, on path D's kind of images."""
+    import shutil
+
+    import torch
+
+    from endoscopy_tpu_torch.aug.views import eval_view
+    from endoscopy_tpu_torch.ckpt import io as ckpt_io
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.models import build_model
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log_dir = out_dir / "log"
+    cfg_sup, cfg2, cfg21 = path_g.learn_configs(str(out_dir / "ckpt"),
+                                                str(log_dir))
+    # the supervised Conformer (23 classes) on path D's stage-2 images
+    rk.randaugment_mc.launches = 0
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    sup, _ = learn.run_config(cfg_sup, device="cuda",
+                              data=path_e.supervised_data(cfg_sup, data2))
+    torch.cuda.synchronize()
+    sup_s = time.perf_counter() - t0
+    sup_log = [r for r in _log_records(log_dir, "suplearning")
+               if "loss/train" in r]
+    donor_dir = out_dir / "ckpt" / "sup_paper" / "epoch_1"
+    print(f"path G3: kaggle_supervised_paper (Conformer-Ti, 23 classes, "
+          f"{cfg_sup.DATA.IMG_SIZE} px) {sup.n_iter_per_epoch} steps of "
+          f"{sup._images_per_step()} images and an evaluation in "
+          f"{sup_s:.2f} s: train loss {sup_log[0]['loss/train']:.4f}, step "
+          f"ms (wall / steps) "
+          f"{sup_log[0]['time/epoch_s'] * 1e3 / sup.n_iter_per_epoch:.3f}; "
+          f"randaugment_mc launches {rk.randaugment_mc.launches}; "
+          f"checkpoint {donor_dir.is_dir()}", flush=True)
+    if not donor_dir.is_dir() or rk.randaugment_mc.launches:
+        fail("path G3: the supervised Conformer left no checkpoint or "
+             "launched the kernel")
+
+    # real_2 from the supervised checkpoint: the trunk grafted, the heads
+    # of another class count left fresh
+    cfg2.MODEL.PRE_TRAIN_PATH = str(donor_dir)
+    torch.manual_seed(seed + 1)
+    model = build_model(cfg2)
+    heads = ("conv_cls_head.", "trans_cls_head.")
+    fresh = {k: v.clone() for k, v in model.state_dict().items()
+             if k.startswith(heads)}
+    donor = ckpt_io.restore_checkpoint(str(donor_dir), "cpu")[0]["model"]
+    trainer = learn.prepare_trainer(cfg2, model=model, device="cuda",
+                                    data=data2)
+    now = {k: v.cpu() for k, v in trainer.state.model.state_dict().items()}
+    not_grafted = [k for k in now if not k.startswith(heads)
+                   and not torch.equal(now[k], donor[k])]
+    not_fresh = [k for k in fresh if not torch.equal(now[k], fresh[k])]
+    print(f"path G3: real_2's PRE_TRAIN_PATH graft: {len(now) - len(fresh)} "
+          f"trunk tensors, {len(not_grafted)} not equal to the donor's; "
+          f"{len(fresh)} head tensors ({[tuple(fresh[k].shape) for k in fresh]}"
+          f" against the donor's {[tuple(donor[k].shape) for k in fresh]}), "
+          f"{len(not_fresh)} not fresh", flush=True)
+    if not_grafted or not_fresh:
+        fail(f"path G3: graft {not_grafted[:4]}, heads {not_fresh[:4]}")
+
+    per_epoch = []
+    train_one = trainer.train_one
+
+    def counted(epoch):
+        launches, step = rk.randaugment_mc.launches, trainer.state.step
+        meter = train_one(epoch)
+        per_epoch.append((rk.randaugment_mc.launches - launches,
+                          trainer.state.step - step))
+        return meter
+
+    trainer.train_one = counted
+    rk.randaugment_mc.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    log = _log_records(log_dir, "semiformer")
+    train = [r for r in log if "loss/train" in r]
+    valid = [r for r in log if "loss/valid" in r]
+    saved = sorted(p.name for p in (out_dir / "ckpt" / "real_2").iterdir())
+    # the evaluation's probabilities against softmax(conv + trans) of a
+    # direct forward of the EMA teacher
+    u8, t, m = next(iter(trainer.valid_dl))
+    ema = trainer._eval_model()
+    probs = trainer._eval_step(ema, u8, t, m)[2]
+    bf16 = trainer.dtype == torch.bfloat16
+    with torch.no_grad(), torch.autocast(trainer.device.type, torch.bfloat16,
+                                         enabled=bf16):
+        conv, trans = ema(eval_view(u8, int(cfg2.DATA.IMG_SIZE),
+                                    trainer.dtype, device="cuda"
+                                    ).permute(0, 3, 1, 2))
+    direct = torch.softmax(conv.float() + trans.float(), -1)
+    eval_err = float((probs - direct).abs().max())
+    conv_only = float((probs - torch.softmax(conv.float(), -1)).abs().max())
+    warm = int(cfg2.TRAIN.EVAL_STEP_SUP) - 1
+    print(f"path G3: real_2 through fit, {fit_s:.2f} s: (launches, steps) "
+          f"per epoch {per_epoch} (the first {warm} the warmup); train loss "
+          f"{[round(r['loss/train'], 4) for r in train]}, epoch s "
+          f"{[round(r['time/epoch_s'], 3) for r in train]}, valid loss "
+          f"{[round(r['loss/valid'], 4) for r in valid]}, macro-F1 "
+          f"{[r['metric/macro_f1'] for r in valid]}; checkpoints {saved}; "
+          f"evaluation vs softmax(conv + trans) of a direct EMA forward "
+          f"max_abs_err {eval_err:.3e} (against softmax(conv) alone "
+          f"{conv_only:.3e})", flush=True)
+    steps = int(cfg2.TRAIN.EVAL_STEP)
+    n_warm = len(data2[0][0].manifest) // int(cfg2.DATA.BATCH_SIZE)
+    want = [(0, n_warm)] * warm + [(steps, steps)] * (
+        int(cfg2.TRAIN.EPOCHS) - warm)
+    if per_epoch != want:
+        fail(f"path G3: (launches, steps) per epoch {per_epoch}, expected "
+             f"{want}")
+    losses = [r["loss/train"] for r in train]
+    if not np.isfinite(losses).all():
+        fail(f"path G3: train loss {losses}")
+    if saved != [f"epoch_{e}" for e in range(1, int(cfg2.TRAIN.EPOCHS) + 1)]:
+        fail(f"path G3: checkpoints {saved}")
+    if eval_err > 1e-6 or conv_only <= 1e-3:
+        fail("path G3: the evaluation is not softmax(conv + trans)")
+
+    # real_2_1: 112 px, 312 images a step, in the FixMatch phase
+    data21 = path_d.synthetic_data(cfg21, path_g.REAL_2_1_SIZES, seed + 3)
+    steps21 = int(cfg21.TRAIN.EVAL_STEP) * int(cfg21.TRAIN.EPOCHS)
+    rk.randaugment_mc.launches = 0
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    trainer21, _ = learn.run_config(cfg21, device="cuda", data=data21)
+    torch.cuda.synchronize()
+    s21 = time.perf_counter() - t0
+    launches21 = rk.randaugment_mc.launches
+    train21 = [r for r in _log_records(log_dir, "semiformer")
+               if "loss/train" in r][len(train):]
+    print(f"path G3: real_2_1 ({cfg21.DATA.IMG_SIZE} px, B="
+          f"{cfg21.DATA.BATCH_SIZE}, MU={cfg21.DATA.MU}, "
+          f"{trainer21._images_per_step()} images a step) {steps21} steps in "
+          f"{s21:.2f} s with an evaluation: train loss "
+          f"{[r['loss/train'] for r in train21]}, step count "
+          f"{trainer21.state.step}, randaugment_mc launches {launches21}",
+          flush=True)
+    if (trainer21.state.step != steps21 or launches21 != steps21
+            or trainer21._images_per_step() != 312
+            or not np.isfinite([r["loss/train"] for r in train21]).all()):
+        fail("path G3: real_2_1 did not take its steps")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"supervised_step_ms": sup_log[0]["time/epoch_s"] * 1e3
+            / sup.n_iter_per_epoch,
+            "launches_steps_per_epoch": per_epoch, "train_loss": losses,
+            "macro_f1": [r["metric/macro_f1"] for r in valid],
+            "eval_max_abs_err": eval_err,
+            "real_2_1_launches_per_step": launches21 / steps21}
+
+
+def phase_semiformer(seed: int, out_dir: Path, data2):
+    """Path G: the SemiFormer trainer, G1-G3."""
+    out = {"g1": {s: semiformer_step_matches_cpu(s)
+                  for s in range(seed, seed + PART1_SEEDS)}}
+    out["g2"] = semiformer_full(seed)
+    out["g3"] = semiformer_learn(seed, out_dir, data2)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2117,6 +2572,11 @@ def main(argv=None) -> int:
     print(f"path F took {time.perf_counter() - t0:.1f} s", flush=True)
     print("path F: " + json.dumps(cm_row), flush=True)
     f2, f3 = cm_row["f2"], cm_row["f3"]
+    t0 = time.perf_counter()
+    sf_row = phase_semiformer(args.seed, scratch / "path_g", data2)
+    print(f"path G took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("path G: " + json.dumps(sf_row), flush=True)
+    g2, g3 = sf_row["g2"], sf_row["g3"]
 
     kernels = [{
         "name": "randaugment_mc", "route": "cuda",
@@ -2149,6 +2609,16 @@ def main(argv=None) -> int:
                    "f3_launches": f3["launches"], "f3_steps": f3["steps"],
                    "f3_real_1_1_launches_per_step":
                        f3["real_1_1_launches_per_step"]},
+        "path_g": {"launches_per_step": g2["launches_per_step"],
+                   "max_abs_err": g2["kernel_max_abs_err"],
+                   "ms": g2["kernel_ms"], "plain_ms": g2["plain_ms"],
+                   "bound_ms": g2["bound_ms"], "bound_by": "bytes",
+                   "side": int(path_g.REAL_2["DATA"]["IMG_SIZE"]),
+                   "mode": "crop+pad",
+                   "g3_launches_steps_per_epoch":
+                       g3["launches_steps_per_epoch"],
+                   "g3_real_2_1_launches_per_step":
+                       g3["real_2_1_launches_per_step"]},
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

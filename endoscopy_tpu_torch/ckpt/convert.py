@@ -1,9 +1,11 @@
 """Carry weights from the JAX package's flax trees to the port.
 
 ``from_jax_params(params, batch_stats)`` takes the flax ``ClassifierHead``
-or ``ModelwEmb`` trees (nested dicts of numpy arrays) and returns the
-port's ``state_dict``. It keeps its own copy of the key map behind the JAX
-package's ``export_resnet_torch_state``:
+or ``ModelwEmb`` trees, or the bare ``Conformer`` tree (no ``backbone``
+scope; nested dicts of numpy arrays), and returns the port's
+``state_dict``. For the ResNet it keeps its own copy of the key map behind
+the JAX package's ``export_resnet_torch_state``; the Conformer's port
+names are its flax module paths joined by dots. In both:
 
 - conv kernels go HWIO → OIHW;
 - dense kernels are transposed: the linear head's ``head.fc``, and
@@ -11,7 +13,10 @@ package's ``export_resnet_torch_state``:
   ``head_emb.{proj1,proj2}``;
 - BN ``scale``/``bias`` become ``weight``/``bias`` and the ``mean``/``var``
   batch statistics become running statistics (the MLP head's ``fc.bn``
-  too).
+  too); a LayerNorm's ``scale``/``bias`` (no statistics) become
+  ``weight``/``bias``;
+- the Conformer's dense kernels include ``qkv``, whose output order
+  ``(3, heads, head_dim)`` is kept; its ``cls_token`` is copied as it is.
 
 ``write_npz``/``read_npz`` store the two trees as one flat ``.npz`` (keys
 like ``params/backbone/conv1/kernel``), so a dump made beside the JAX
@@ -72,10 +77,40 @@ def _walk(tree: Mapping, path: Tuple[str, ...]):
     return node
 
 
+def _bare_items(params: Mapping, batch_stats: Optional[Mapping],
+                path: Tuple[str, ...] = ()):
+    """``(port key, value)`` for a tree without a ``backbone`` scope (the
+    Conformer): the flax path joined by dots."""
+    for name, node in params.items():
+        at = path + (name,)
+        key = ".".join(at)
+        if not isinstance(node, Mapping):  # a bare parameter: cls_token
+            yield key, node
+        elif "kernel" in node:
+            kernel = np.asarray(node["kernel"])
+            yield f"{key}.weight", (np.transpose(kernel, (3, 2, 0, 1))
+                                    if kernel.ndim == 4 else kernel.T)
+            if "bias" in node:
+                yield f"{key}.bias", node["bias"]
+        elif "scale" in node:
+            yield f"{key}.weight", node["scale"]
+            yield f"{key}.bias", node["bias"]
+            stats = (None if batch_stats is None
+                     else _walk(batch_stats, at))
+            if stats is not None:  # BatchNorm; a LayerNorm has none
+                yield f"{key}.running_mean", stats["mean"]
+                yield f"{key}.running_var", stats["var"]
+        else:
+            yield from _bare_items(node, batch_stats, at)
+
+
 def _port_items(params: Mapping, batch_stats: Optional[Mapping]):
     """``(port key, value)`` for a flax ``ClassifierHead``- or
-    ``ModelwEmb``-shaped tree; the BN running statistics too when
-    ``batch_stats`` is given."""
+    ``ModelwEmb``-shaped tree, or a bare one (the Conformer); the BN
+    running statistics too when ``batch_stats`` is given."""
+    if "backbone" not in params:
+        yield from _bare_items(params, batch_stats)
+        return
     p_bb = params["backbone"]
     b_bb = None if batch_stats is None else batch_stats.get("backbone", {})
     for tkey, path in _key_map(_stage_sizes(p_bb)).items():
@@ -117,8 +152,8 @@ def _tensor(value) -> torch.Tensor:
 
 def from_jax_params(params: Mapping, batch_stats: Mapping
                     ) -> Dict[str, torch.Tensor]:
-    """flax ``ClassifierHead``/``ModelwEmb`` trees → the port model's
-    state."""
+    """flax ``ClassifierHead``/``ModelwEmb``/``Conformer`` trees → the
+    port model's state."""
     out: Dict[str, torch.Tensor] = {}
     for key, value in _port_items(params, batch_stats):
         out[key] = _tensor(value)

@@ -7,8 +7,9 @@ PRE_TRAIN_PATH`` names the donor:
 
 - a checkpoint directory of the port (``<dir>/state.pt``, ``ckpt/io.py``);
 - a ``.npz`` of flax trees (``ckpt/convert.py::read_npz``);
-- a torch ``.pth`` in the timm / torchvision ResNet layout (the
-  reference's own checkpoints, ``{'model_state_dict': ...}`` included).
+- a torch ``.pth`` in the timm / torchvision ResNet layout or the
+  reference's Conformer layout (the reference's own checkpoints,
+  ``{'model_state_dict': ...}`` included).
 
 Every tensor whose name and shape match is copied; a head of another class
 count keeps its fresh initialization (the reference's head surgery).
@@ -18,10 +19,13 @@ the model's own initialization. After the graft the EMA teacher is
 re-synced to the model, as the reference's EMA copies the model after the
 transfer load.
 
-Only the ResNet part of ``ckpt/torch_import.py`` is ported: the port's
-ResNet keeps torchvision's module names, so its key map is the
-``backbone.`` prefix. A ``.pth`` for another architecture raises
-(ROADMAP.md).
+Of ``ckpt/torch_import.py`` the ResNet and Conformer maps are ported.
+The port's ResNet keeps torchvision's module names, so its key map is the
+``backbone.`` prefix; the port's Conformer keeps the reference's names, so
+its map is the identity. Each skips its heads (the ResNet's ``fc``/
+``head``/``classifier``; the Conformer's ``conv_cls_head``,
+``trans_cls_head`` and ``pooling``), whatever their shape. A ``.pth`` for
+another architecture raises (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ from endoscopy_tpu_torch.config.loader import is_none
 # a torch ModelwEmb checkpoint aliases every backbone tensor as
 # 'backbone.<idx>.<key>' (an nn.Sequential view) besides 'model.<key>'
 _ALIAS_RE = re.compile(r"^backbone\.\d+\.")
-_HEAD_RE = re.compile(r"^(fc|head|classifier)\b")
+# model family → (the prefix of its port names, its heads)
+_TORCH_MAPS = {
+    "resnet": ("backbone.", re.compile(r"^(fc|head|classifier)\b")),
+    "conformer": ("", re.compile(r"^(conv_cls_head|trans_cls_head|pooling)\b")),
+}
 
 
 def graft_tree(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor]
@@ -69,12 +77,24 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return ckpt
 
 
-def import_resnet_state(dst: Mapping[str, torch.Tensor],
-                        state_dict: Mapping[str, torch.Tensor]):
-    """A timm ResNet state dict onto the port's names: ``module.`` and
+def _torch_map(model_name: str):
+    for family, spec in _TORCH_MAPS.items():
+        if str(model_name).startswith(family):
+            return family, spec
+    raise NotImplementedError(
+        f"no torch import key map for '{model_name}' in endoscopy_tpu_torch "
+        f"yet ({', '.join(_TORCH_MAPS)} only); see the port queue in "
+        "ROADMAP.md")
+
+
+def import_torch_state(dst: Mapping[str, torch.Tensor],
+                       state_dict: Mapping[str, torch.Tensor],
+                       model_name: str = "resnet"):
+    """A reference state dict onto the port's names: ``module.`` and
     ``model.`` wrappers stripped, heads, ``num_batches_tracked`` and
-    aliases skipped, ``backbone.`` prepended. Returns ``(new state,
+    aliases skipped, the family's prefix prepended. Returns ``(new state,
     imported, shape mismatches, unmapped keys)``."""
+    _, (prefix, head_re) = _torch_map(model_name)
     mapped, mismatch, unmapped = {}, [], []
     for tkey, value in state_dict.items():
         key = tkey
@@ -82,9 +102,9 @@ def import_resnet_state(dst: Mapping[str, torch.Tensor],
             if key.startswith(wrap):
                 key = key[len(wrap):]
         if (_ALIAS_RE.match(key) or key.endswith("num_batches_tracked")
-                or _HEAD_RE.match(key)):
+                or head_re.match(key)):
             continue
-        name = f"backbone.{key}"
+        name = prefix + key
         if name not in dst:
             unmapped.append(tkey)
         elif tuple(value.shape) != tuple(dst[name].shape):
@@ -109,20 +129,16 @@ def load_pretrained_into(model: nn.Module, path: str, model_name: str) -> str:
         report = (f"graft: {n} tensors copied, {len(miss)} shape-mismatched "
                   f"(head surgery): {miss[:4]}")
     else:
-        if not str(model_name).startswith("resnet"):
-            raise NotImplementedError(
-                f"no torch import key map for '{model_name}' in "
-                "endoscopy_tpu_torch yet (ResNet only); see the port queue "
-                "in ROADMAP.md")
-        new, n, miss, unmapped = import_resnet_state(
-            dst, load_torch_checkpoint(path))
+        family, _ = _torch_map(model_name)
+        new, n, miss, unmapped = import_torch_state(
+            dst, load_torch_checkpoint(path), model_name)
         if n == 0:
             raise ValueError(f"torch transfer from '{path}' imported 0 "
                              f"tensors; unmapped keys e.g. {unmapped[:8]}")
         if unmapped:
             print(f"WARNING: torch import left {len(unmapped)} keys "
                   f"unmapped, e.g. {unmapped[:8]}")
-        report = (f"torch import (resnet): {n} tensors, {len(miss)} shape "
+        report = (f"torch import ({family}): {n} tensors, {len(miss)} shape "
                   f"mismatches, {len(unmapped)} unmapped")
     model.load_state_dict(new, strict=True)
     return report

@@ -5,19 +5,23 @@ Usage::
     python -m endoscopy_tpu_torch.cli.learn --config-1 configs/foo.yaml \
         [--config-2 configs/bar.yaml] [--device cuda|cpu]
 
+``--config`` is another name for ``--config-1``.
+
 Two configs run progressive resizing: the model is built once from the
 first config, and the second stage trains the first stage's final weights
-at its own image size. ``TRAIN.IS_SSL`` with ``MODEL.TYPE_SEMI: FixMatch``
-or ``CoMatch`` trains that trainer (both fed by the same labeled and
-unlabeled loaders), ``TRAIN.IS_SSL: False`` the supervised trainer (its
-plain and triplet branches); ``MODEL.PRE_TRAIN_PATH`` grafts a donor's trunk and
-``MODEL.PRE_TRAIN_RESUME`` resumes a checkpoint (a directory of the port,
-or a JAX train state dumped to ``.npz``). SIGTERM checkpoints at the next
-epoch boundary and exits 143.
+at its own image size. ``TRAIN.IS_SSL`` with ``MODEL.TYPE_SEMI: FixMatch``,
+``CoMatch`` or ``SemiFormer`` trains that trainer (all fed by the same
+labeled and unlabeled loaders; SemiFormer's warmup epochs, before
+``TRAIN.EVAL_STEP_SUP``, use the labeled one alone, and a resume past them
+starts in the FixMatch phase), ``TRAIN.IS_SSL: False`` the supervised
+trainer (its plain and triplet branches); ``MODEL.PRE_TRAIN_PATH`` grafts
+a donor's trunk and ``MODEL.PRE_TRAIN_RESUME`` resumes a checkpoint (a
+directory of the port, or a JAX train state dumped to ``.npz``). SIGTERM
+checkpoints at the next epoch boundary and exits 143.
 
 pandas (the CSVs) and cv2 (the JPEGs) are imported only by
 :func:`build_data`, so a caller that brings its own loaders needs neither.
-Not ported yet (ROADMAP.md): SemiFormer and ``--trainer ezbm``,
+Not ported yet (ROADMAP.md): ``--trainer ezbm``,
 ``DATA.LOADER: native`` and ``--preview``.
 """
 
@@ -89,7 +93,9 @@ def make_trainer(config, model, device=None):
         return CoMatch(model=model, opt_func=config.TRAIN.OPT_NAME,
                        device=device)
     if type_semi == "SemiFormer":
-        raise _not_ported(f"the {type_semi} trainer")
+        from endoscopy_tpu_torch.train.semiformer import SemiFormer
+        return SemiFormer(model=model, opt_func=config.TRAIN.OPT_NAME,
+                          device=device)
     raise ValueError(f"unknown TYPE_SEMI {type_semi}")
 
 
@@ -138,7 +144,8 @@ def run_config(config, model=None, carry_state=None, device=None, data=None):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="endoscopy_tpu_torch training")
-    parser.add_argument("--config-1", required=True)
+    parser.add_argument("--config-1", "--config", dest="config_1",
+                        required=True)
     parser.add_argument("--config-2", default=None,
                         help="second stage for progressive resizing")
     parser.add_argument("--trainer", default=None, choices=[None, "ezbm"],

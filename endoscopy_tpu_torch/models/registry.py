@@ -1,9 +1,11 @@
 """``build_model`` for the port (subset of ``endoscopy_tpu/models/registry.py``).
 
 ``resnet50`` and ``resnet_tiny`` under the plain classifier or, for
-CoMatch and ``MODEL.IS_TRIPLET``, under ``ModelwEmb``. Every other backbone
-and the bias-free margin head raise and point at the port queue in
-ROADMAP.md.
+CoMatch and ``MODEL.IS_TRIPLET``, under ``ModelwEmb``; ``conformer``, the
+dual-head Conformer with its own heads (Conformer-Ti, or the
+``MODEL.{EMBED_DIM,DEPTH,NUM_HEADS,MLP_RATIO,PATCH_SIZE,CHANNEL_RATIO}``
+overrides). Every other backbone and the bias-free margin head raise and
+point at the port queue in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -11,14 +13,21 @@ from __future__ import annotations
 from torch import nn
 
 from endoscopy_tpu_torch.config.loader import is_none
-from endoscopy_tpu_torch.models import resnet
+from endoscopy_tpu_torch.models import conformer, resnet
 from endoscopy_tpu_torch.models.heads import ClassifierHead, build_head
 from endoscopy_tpu_torch.models.modelwemb import ModelwEmb
 
 _REGISTRY = {
     "resnet50": resnet.resnet50,
     "resnet_tiny": resnet.resnet_tiny,
+    "conformer": conformer.conformer_tiny,
 }
+
+# MODEL key → Conformer field
+_CONFORMER_FIELDS = (("EMBED_DIM", "embed_dim"), ("DEPTH", "depth"),
+                     ("NUM_HEADS", "num_heads"), ("MLP_RATIO", "mlp_ratio"),
+                     ("PATCH_SIZE", "patch_size"),
+                     ("CHANNEL_RATIO", "channel_ratio"))
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -34,9 +43,14 @@ def create_backbone(name: str) -> nn.Module:
 
 
 def build_model(config) -> nn.Module:
-    """The config's model with float32 parameters: ``ModelwEmb`` for
-    CoMatch and the triplet branch, else backbone + linear head."""
+    """The config's model with float32 parameters: the Conformer with its
+    two heads, ``ModelwEmb`` for CoMatch and the triplet branch, else
+    backbone + linear head."""
     num_classes = int(config.MODEL.NUM_CLASSES)
+    if config.MODEL.NAME == "conformer":
+        overrides = {attr: config.MODEL[key] for key, attr in _CONFORMER_FIELDS
+                     if not is_none(config.MODEL.get(key))}
+        return conformer.Conformer(num_classes=num_classes, **overrides)
     backbone = create_backbone(config.MODEL.NAME)
     if config.MODEL.TYPE_SEMI == "CoMatch" or bool(config.MODEL.IS_TRIPLET):
         return ModelwEmb(backbone, num_classes, int(config.MODEL.LOW_DIM))

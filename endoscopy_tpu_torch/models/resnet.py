@@ -44,11 +44,13 @@ def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-           padding: int = 0) -> nn.Conv2d:
-    """A bias-free convolution with flax's initial kernel."""
+           padding: int = 0, bias: bool = False) -> nn.Conv2d:
+    """A convolution with flax's initial kernel (and zero bias)."""
     conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding,
-                     bias=False)
+                     bias=bias)
     lecun_normal_(conv.weight)
+    if bias:
+        nn.init.zeros_(conv.bias)
     return conv
 
 

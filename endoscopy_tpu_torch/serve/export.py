@@ -15,6 +15,10 @@ dtype (bf16 on the card), so the forward is the unquantized one on the
 dequantized weights, the numbers the JAX artifact computes when XLA folds
 the same convert × scale into its constants. An artifact without the key
 (the first format) loads as before.
+
+The Conformer is not served yet (ROADMAP.md): the JAX export serves its
+conv head alone, and the artifact would also have to carry the model's
+``MODEL`` overrides; ``export_model`` refuses it.
 """
 
 from __future__ import annotations
@@ -73,6 +77,10 @@ def export_model(config, state_dict: Mapping[str, torch.Tensor], out_path: str,
     kernels as int8 with per-channel scales. Returns
     ``(canonical_input_size, num_classes)``."""
     _check_quantize(quantize)
+    if config.MODEL.NAME == "conformer":
+        raise NotImplementedError(
+            "serving the Conformer is not ported to endoscopy_tpu_torch "
+            "yet; see the port queue in ROADMAP.md")
     model = build_model(config)
     model.load_state_dict(state_dict, strict=True)
     size = canonical_size(config)

@@ -198,21 +198,27 @@ class BaseTrainer:
         model = st.ema if self.use_ema and st.ema is not None else st.model
         return model.eval()
 
+    @staticmethod
+    def _eval_loss_probs(out, targets):
+        """Per-row CE and softmax probabilities of a model's eval output."""
+        logits = model_logits(out).float()
+        return (cross_entropy(logits, targets, reduction="none"),
+                torch.softmax(logits, -1))
+
     @torch.inference_mode()
     def _eval_step(self, model, batch_u8, targets, mask):
         """``(sum of CE × mask, sum of mask, softmax probabilities)`` of one
-        padded batch, on the device."""
+        padded batch, on the device (:meth:`_eval_loss_probs`)."""
         x = eval_view(batch_u8, self.img_size, self.dtype, device=self.device)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            logits = model_logits(model(x.permute(0, 3, 1, 2)))
-        logits = logits.float()
+            out = model(x.permute(0, 3, 1, 2))
         t = torch.as_tensor(targets).to(self.device, torch.long,
                                         non_blocking=True)
         m = torch.as_tensor(mask).to(self.device, torch.float32,
                                      non_blocking=True)
-        ce = cross_entropy(logits, t, reduction="none")
-        return torch.sum(ce * m), torch.sum(m), torch.softmax(logits, -1)
+        ce, probs = self._eval_loss_probs(out, t)
+        return torch.sum(ce * m), torch.sum(m), probs
 
     def _eval_pass(self, batches):
         """Every batch through :meth:`_eval_step`, fetched to the host once

@@ -14,7 +14,10 @@ trainer: fresh weights, checkpoint order, class weights, the triplet loss,
 the heads, Mixup/CutMix, its steps, ``fit``, the ``evaluate`` and
 ``pseudo_label`` CLIs), ``comatch`` (the CoMatch trainer: ``grayscale``,
 ``adjust_hue``, ``comatch_views``, its steps and queue, ``run_config``, the
-transfer into ``ModelwEmb``) and ``nojax`` (the import and device rules). This one test runs every case and reports every failure
+transfer into ``ModelwEmb``), ``semiformer`` (the Conformer, its conversion,
+fresh weights and ``.pth`` graft, the SemiFormer trainer's two steps,
+evaluation and ``run_config``, the supervised trainer on the Conformer) and
+``nojax`` (the import and device rules). This one test runs every case and reports every failure
 with its traceback. It is one test item so that the counts of the JAX
 suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
 within 2, stay the JAX suite's.
@@ -25,10 +28,10 @@ import traceback
 import torch
 
 from torch_port_checks import (comatch, learn, models, nojax, randaugment,
-                               serve, supervised, train, views)
+                               semiformer, serve, supervised, train, views)
 
 MODULES = (models, randaugment, views, serve, train, learn, supervised,
-           comatch, nojax)
+           comatch, semiformer, nojax)
 
 
 def _cases():

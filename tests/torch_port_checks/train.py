@@ -457,12 +457,14 @@ def _compare_step(port, jax_out, got, opt, frozen=(), start=None):
                    _jax_base().state if start is None else start)
 
 
-def _compare_state(port, jstate, opt, frozen, start, l2_bound=None):
+def _compare_state(port, jstate, opt, frozen, start, l2_bound=None,
+                   skip=()):
     """Parameters, BN statistics and EMA after one step from the JAX
     state ``start``, at ``_compare_step``'s bounds. Both took one update,
     whatever GRAD_ACCUM. With ``l2_bound`` each tensor's update is held
     to that relative L2 error in place of the optimizer's element bound
-    (an Adam update after the first, no longer about ``-lr sign(g)``)."""
+    (an Adam update after the first, no longer about ``-lr sign(g)``).
+    Tensors whose names end with one of ``skip`` are left to the caller."""
     assert port.state.step == int(jstate.step) == int(start.step) + 1
     init = _port_state(start.params, start.batch_stats)
     want = _port_state(jstate.params, jstate.batch_stats)
@@ -470,7 +472,7 @@ def _compare_state(port, jstate, opt, frozen, start, l2_bound=None):
     params = dict(port.state.model.named_parameters())
     lr = port.lr_schedule(int(start.step))
     for k, w in want.items():
-        if k.endswith("num_batches_tracked"):
+        if k.endswith(("num_batches_tracked", *skip)):
             continue
         d_got = (now[k] - init[k]).numpy()
         d_want = (w - init[k]).numpy()
@@ -491,7 +493,7 @@ def _compare_state(port, jstate, opt, frozen, start, l2_bound=None):
     ema_want = _port_state(jstate.ema_params, jstate.ema_batch_stats)
     ema_now = port.state.ema.state_dict()
     for k, w in ema_want.items():
-        if not k.endswith("num_batches_tracked"):
+        if not k.endswith(("num_batches_tracked", *skip)):
             _close(ema_now[k].numpy(), w.numpy(), rtol=1e-6, atol=1e-6,
                    what=f"ema {k}")
 
