@@ -181,6 +181,49 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    EMA forward; then 3 FixMatch-phase steps of
    ``kaggle_semisupervised_real_2_1.yaml``'s fields (112 px, 312 images).
 
+11. path H: the EZBM trainer (``endoscopy_tpu_torch/train/ezbm.py``;
+   configs and helpers in ``tests/torch_port_checks/path_h.py``) on
+   ``configs/kaggle_supervised_ezbm.yaml``'s fields (ResNet-50 under
+   ``ModelwEmb``, 224 px, B=32, MU=6, Adam, step schedule, EMA, class
+   weights, ``LAMBDA_C`` 4, ``EXPANSION`` balance). H1: for three seeds,
+   a stage-1 SGD step at 112 px, B=4 (BN scale 0.1) by path E3's method,
+   the memorized anchor features too; then a stage-2 step on the CPU's
+   memorized features with the same draws (``reverse`` mode, so ``lam``
+   is not 0.5) and dropout mask, card vs CPU (the loss, ``fc``'s SGD
+   update, the head's BN statistics after both passes), and the same step
+   under Adam on the card with every tensor outside ``fc`` unmoved. H2:
+   stage 1 at full width (96 images a step), 3 warm-up and 8 timed steps,
+   the memory on the card; stage 2 (192 features a step): the numpy
+   sampler's host time, the step's CUDA-event time and enqueue, a step of
+   ``train_one_stage_2`` on the host clock. H3: ``prepare_trainer`` and
+   ``fit`` on ``configs/kvasir_capsule_transfer.yaml``'s fields (11
+   classes, ``INPUT_NAME: path``) on seeded 11-class images, E1's latest
+   checkpoint as ``PRE_TRAIN_PATH``, cut to 2 epochs a stage: the trunk
+   bit-identical, ``fc`` and ``head_emb`` fresh, both stages, one fresh
+   stage-2 optimizer at count 0, the checkpoints those the loss and F1
+   gate selects in stage 2, finite losses. No kernel runs on it.
+12. path I: EfficientNet-B1 (``endoscopy_tpu_torch/models/
+   efficientnet.py``; ``tests/torch_port_checks/path_i.py``). I1: for
+   three seeds, ``kaggle_supervised_abnorm``'s step (2 classes) at 112 px,
+   B=4 by path E3's method; then bf16 on the card against the CPU's
+   float32 step (losses 0.02, updates ``I1_TOL_BF16_UPDATE``) and a bf16
+   control on the un-augmented eval view that the update bound must
+   refuse. I2: 3 warm-up and 8 timed steps at ``kaggle_supervised_
+   abnorm``'s width (32 images, 224 px, Adam, no EMA), then 3 of
+   ``kaggle_supervised``'s (``ModelwEmb``, the triplet branch, 96
+   images): step ms, images/s, the FLOP share, peak memory. No kernel
+   runs on it.
+13. path J: FixMatch on the SASA ResNet-50 (``endoscopy_tpu_torch/models/
+   attention.py``; ``tests/torch_port_checks/path_j.py``) at
+   ``configs/kaggle_semisupervised_real_5.yaml``'s fields (112 px, B=32,
+   MU=6: 416 images a step, SGD nesterov, cosine, EMA, THRES 0.7,
+   ``LAMBDA_U`` 2). J1: path C part 1 for three seeds, each SASA layer's
+   q kernel ×0.1 (``J1_Q_SCALE``). J2: ``train_one`` at full width, 3
+   warm-up and 12 timed steps: step ms, images/s, the FLOP share, peak
+   memory, one kernel launch a step, crop-fused with ``pad=14`` on
+   (192, 112, 112, 3) bf16, against its plain version on the step's own
+   input (0.0), its ms beside its bytes bound.
+
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line and ``{"ok": true, "device": {...}}``.
 """
@@ -200,7 +243,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_port_checks import (path_c, path_d, path_e, path_f,  # noqa: E402
-                               path_g)
+                               path_g, path_h, path_i, path_j)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 
@@ -240,6 +283,19 @@ TRAIN_TOL_BF16_LOSS, TRAIN_TOL_BF16_UPDATE = 0.02, 0.5
 # H100 (seeds 0-2, warmup and FixMatch phase), the weak-as-strong control
 # 0.18..0.52, so 0.5 let the control through on the updates alone
 G1_TOL_BF16_UPDATE = 0.12
+# path H1's bound on fc's stage-2 SGD update, card vs CPU: a float32 MLP
+# head on given features, no backbone (path C's additive term)
+H1_STAGE2_TOL = 1e-3
+# path I1's bf16 bound on the updates (EfficientNet-B1, B=4, 112 px): on
+# the H100 the sound bf16 steps read 0.29-0.34 from the CPU's float32 step,
+# the control on the un-augmented view 0.79-1.27 (seeds 0-2), while its
+# losses (1.2e-2..0.20) mostly pass path C's 0.02; so the updates decide
+I1_TOL_BF16_UPDATE = 0.5
+# path J1's conditioning of the random SASA ResNet-50: its q kernels x 0.1.
+# At 1, q·k is large enough to saturate the softmax: the CPU's float32
+# step read 6.2e-3..3.0e-2 from float64 and bf16-rounded views moved it
+# 1.2-1.5; at 0.1, 7.8e-4..3.1e-3 and 0.18 (seeds 0-1)
+J1_Q_SCALE = 0.1
 
 
 # 64 concurrent raw requests from one client process: argv = port, .npy
@@ -682,14 +738,18 @@ def weak_max_probs(config, model, batch, device: str, seed: int):
     return torch.softmax(logits[b:b + w.shape[0]], -1).amax(-1).cpu()
 
 
-def train_step_matches_cpu(seed: int):
-    """Path C, part 1, for one seed: one step of ResNet-50 at 112 px, B=4,
-    MU=1, from one seeded state and the same draws, on the card against the
+def train_step_matches_cpu(seed: int, base=path_c.REAL_3_1,
+                           label: str = "path C part 1", condition=None):
+    """Path C, part 1, for one seed: one step of ``base``'s model (real_3_1's
+    ResNet-50) at 112 px, B=4, MU=1, from one seeded state (``condition``
+    applied to the model) and the same draws, on the card against the
     CPU's float32 step."""
     small = {"DATA": {"BATCH_SIZE": 4, "MU": 1}, "TRAIN": {"DTYPE": "float32"}}
-    config = path_c.train_config(path_c.REAL_3_1, **small)
+    config = path_c.train_config(base, **small)
     model = path_c.seeded_model(config, seed, path_c.HEAD_STD,
                                 PART1_RESIDUAL_GAMMA)
+    if condition is not None:
+        condition(model)
     batch = path_c.canonical_batches(config, seed, 1)[0]
 
     # THRES in the gap between two of the four weak max-probabilities that
@@ -707,11 +767,11 @@ def train_step_matches_cpu(seed: int):
         m = min(float((p32 - t).abs().min()), float((p16 - t).abs().min()))
         if int((p16 >= t).sum()) == k and m > margin:
             thres, margin = t, m
-    print(f"path C part 1, seed {seed}: weak max-probabilities, float32 on "
+    print(f"{label}, seed {seed}: weak max-probabilities, float32 on "
           f"the CPU {p32.tolist()}, bf16 on the card {p16.tolist()}; THRES "
           f"{thres}, margin {margin:.3e}", flush=True)
     if thres is None:
-        fail("path C part 1: no THRES splits the weak rows alike in float32 "
+        fail(f"{label}: no THRES splits the weak rows alike in float32 "
              "and bf16")
     config.TRAIN.THRES = thres
 
@@ -722,12 +782,13 @@ def train_step_matches_cpu(seed: int):
     upd64 = path_c.step_float64(config, model, batch, seed)
     cpu_l2, cpu_worst = path_c.update_errors(ref[1], upd64)
     _, r_loss, r_l2, _ = _step_errors(step("cpu", _bf16_views), ref)
-    print(f"path C part 1, seed {seed}: the CPU's float32 step against its "
+    print(f"{label}, seed {seed}: the CPU's float32 step against its "
           f"float64 step: updates relative L2 error {cpu_l2:.3e}, worst "
           f"tensor {cpu_worst:.3e}; against itself on views rounded to bf16: "
           f"losses {r_loss:.3e}, updates {r_l2:.3e}", flush=True)
     if not 0.2 < ref[0][3] < 0.8:
-        fail(f"mask mean {ref[0][3]} is not strictly between 0.2 and 0.8")
+        fail(f"{label}: mask mean {ref[0][3]} is not strictly between 0.2 "
+             "and 0.8")
     out = {"cpu_f32_vs_f64_l2": cpu_l2, "cpu_bf16_views_loss": r_loss,
            "cpu_bf16_views_l2": r_l2}
     # as close to the CPU's step as float32 allows: three times the CPU
@@ -742,7 +803,7 @@ def train_step_matches_cpu(seed: int):
         l2_64 = path_c.update_errors(got[1], upd64)[0]
         loss_bound, bound = bounds[dtype]
         what = dtype if alter is None else f"{dtype} control (weak as strong)"
-        print(f"path C part 1, seed {seed}: {what} on the card vs float32 on "
+        print(f"{label}, seed {seed}: {what} on the card vs float32 on "
               f"the CPU: [loss, lx, lu, mask_mean] {got[0]} vs {ref[0]}; "
               f"worst relative loss error {rel:.3e} (bound {loss_bound}); SGD "
               f"updates relative L2 error {l2:.3e} (bound {bound:.3e}), worst "
@@ -751,11 +812,13 @@ def train_step_matches_cpu(seed: int):
         sound = same_mask and rel <= loss_bound and l2 <= bound
         if alter is not None:
             if sound:
-                fail("path C bf16 check passes a step without the strong view")
+                fail(f"{label}: the bf16 check passes a step without the "
+                     "strong view")
             out["bfloat16_control"] = {"loss_rel_err": rel, "update_l2_err": l2}
             continue
         if not sound:
-            fail(f"path C {dtype} step on the card differs from the CPU's")
+            fail(f"{label}: the {dtype} step on the card differs from the "
+                 "CPU's")
         out[dtype] = {"loss_rel_err": rel, "update_l2_err": l2,
                       "update_worst_tensor_err": worst,
                       "update_l2_err_vs_f64": l2_64}
@@ -777,13 +840,18 @@ def train_flops_per_image(model, img: int) -> int:
     one per token in a ViT block); the Conformer's attention adds its two
     batched products, ``q·kᵀ`` and ``attn·v`` (each ``heads · n² ·
     head_dim`` multiply-adds; their gradients, two products each, make the
-    factor 3 hold for them too). BN, LN, activations, softmax, pooling
+    factor 3 hold for them too). A grouped (depthwise) convolution counts
+    its group's inputs, and the squeeze-excite branch its two 1x1
+    convolutions on the pooled pixel; SASA adds its two products,
+    ``q·k`` and ``weights·v`` over each pixel's ``ks²`` window (each ``C ·
+    ks²`` multiply-adds a pixel). BN, LN, activations, softmax, pooling
     and the loss are not counted."""
     import copy
 
     import torch
     from torch import nn
 
+    from endoscopy_tpu_torch.models.attention import SASALayer
     from endoscopy_tpu_torch.models.conformer import Attention
 
     macs = {}
@@ -795,6 +863,8 @@ def train_flops_per_image(model, img: int) -> int:
                 macs[name] = out.numel() * per
             elif isinstance(m, nn.Linear):
                 macs[name] = out.numel() * m.in_features
+            elif isinstance(m, SASALayer):  # q·k and weights·v, ks² a pixel
+                macs[name + ".products"] = 2 * inp[0].numel() * m.ks ** 2
             else:  # Attention: q·kᵀ and attn·v over (b, heads, n, head_dim)
                 b, n, c = inp[0].shape
                 macs[name + ".products"] = 2 * b * n * n * c
@@ -802,7 +872,7 @@ def train_flops_per_image(model, img: int) -> int:
 
     probe = copy.deepcopy(model).cpu().float().eval()
     for name, m in probe.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear, Attention)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, Attention, SASALayer)):
             m.register_forward_hook(count(name))
     with torch.no_grad():
         probe(torch.zeros(1, 3, img, img))
@@ -1559,6 +1629,61 @@ def supervised_triplet(seed: int, data2):
     return out
 
 
+def cross_device_step(label: str, cfg, batch, seed: int, step, step64):
+    """Path E3's method for one step: the labeled view of ``batch`` on the
+    card and on the CPU from the same draws, ``step(device, view)`` (its
+    ``[stats]`` and updates first) run by each device on each view, and
+    ``step64(view)`` the CPU's float64 updates on the card's view. Fails
+    when the views, the stats or the updates differ beyond E3's bounds;
+    returns ``(readings, the steps by (device, view), the views)``."""
+    views = {dev: path_e.step_view(cfg, batch, seed, dev)
+             for dev in ("cuda", "cpu")}
+    view_err = float((views["cuda"].cpu() - views["cpu"]).abs().max())
+    steps = {(dev, v): step(dev, views[v])
+             for dev in ("cpu", "cuda") for v in ("cuda", "cpu")}
+    upd64 = step64(views["cuda"])
+    ref, ref_upd = steps["cpu", "cuda"][:2]
+    got, upd = steps["cuda", "cuda"][:2]
+    cpu_l2 = path_c.update_errors(ref_upd, upd64)[0]
+    # how far each device's float32 step moves when its input changes in
+    # the last bit (the other device's view): a ReLU near-tie that one
+    # summation order crosses moves one tensor's update by percents
+    sens = {dev: path_c.update_errors(steps[dev, "cpu"][1],
+                                      steps[dev, "cuda"][1])[0]
+            for dev in ("cpu", "cuda")}
+    rel = max(abs(a - b) / abs(b) for v in ("cuda", "cpu")
+              for a, b in zip(steps["cuda", v][0], steps["cpu", v][0]))
+    l2s = {v: path_c.update_errors(steps["cuda", v][1], steps["cpu", v][1])
+           for v in views}
+    l2, worst = l2s["cuda"]
+    l2_64 = path_c.update_errors(upd, upd64)[0]
+    # path C's bound on the CPU's view; on the card's view also each
+    # device's own move between the two views (the card's ReLU near-tie,
+    # PERF.md)
+    bounds = {"cpu": 3 * cpu_l2 + 1e-3,
+              "cuda": 3 * max(cpu_l2, *sens.values()) + 1e-3}
+    print(f"{label}: the labeled view on the card vs the CPU's on the same "
+          f"draws: max_abs_err {view_err:.3e} (bound {E3_VIEW_TOL}); the "
+          f"float32 step, card vs CPU ({len(batch[0])} images, "
+          f"{int(cfg.DATA.IMG_SIZE)} px): stats {got} vs {ref}, worst "
+          f"relative error on either view {rel:.3e} (bound "
+          f"{TRAIN_TOL_F32_LOSS}); SGD updates relative L2 on the CPU's view "
+          f"{l2s['cpu'][0]:.3e} (bound {bounds['cpu']:.3e}: the CPU's "
+          f"float32 step is {cpu_l2:.3e} from float64), on the card's "
+          f"{l2:.3e} (worst tensor {worst:.3e}; bound {bounds['cuda']:.3e}: "
+          f"a view's last bits move the CPU's step by {sens['cpu']:.3e}, the "
+          f"card's by {sens['cuda']:.3e}); the card against float64 "
+          f"{l2_64:.3e}", flush=True)
+    if view_err > E3_VIEW_TOL:
+        fail(f"{label}: the step's view differs on the card")
+    if rel > TRAIN_TOL_F32_LOSS or any(l2s[v][0] > bounds[v] for v in views):
+        fail(f"{label}: the step on the card differs from the CPU's")
+    return ({"view_max_abs_err": view_err, "loss_rel_err": rel,
+             "update_l2_err": l2, "update_l2_err_cpu_view": l2s["cpu"][0],
+             "update_l2_err_vs_f64": l2_64, "cpu_f32_vs_f64_l2": cpu_l2,
+             "view_sensitivity_l2": sens}, steps, views)
+
+
 def supervised_step_matches_cpu(seed: int):
     """Path E3 for one seed: one SGD step, card against CPU, plain and
     triplet."""
@@ -1568,58 +1693,11 @@ def supervised_step_matches_cpu(seed: int):
         model = path_c.seeded_model(cfg, seed, path_c.HEAD_STD,
                                     PART1_RESIDUAL_GAMMA)
         x, t = path_e.step_batch(cfg, seed)
-        views = {dev: path_e.step_view(cfg, (x, t), seed, dev)
-                 for dev in ("cuda", "cpu")}
-        view_err = float((views["cuda"].cpu() - views["cpu"]).abs().max())
-        # each device's step on each device's view: (stats, updates)
-        steps = {(dev, v): path_e.step_once(cfg, model, views[v], t, dev, seed)
-                 for dev in ("cpu", "cuda") for v in ("cuda", "cpu")}
-        upd64 = path_e.step_float64(cfg, model, views["cuda"], t, seed)
-        ref, ref_upd = steps["cpu", "cuda"]
-        got, upd = steps["cuda", "cuda"]
-        cpu_l2 = path_c.update_errors(ref_upd, upd64)[0]
-        # how far each device's float32 step moves when its input changes
-        # in the last bit (the other device's view): a ReLU near-tie that
-        # one summation order crosses moves one tensor's update by percents
-        sens = {dev: path_c.update_errors(steps[dev, "cpu"][1],
-                                          steps[dev, "cuda"][1])[0]
-                for dev in ("cpu", "cuda")}
-        rel = max(abs(a - b) / abs(b) for v in ("cuda", "cpu")
-                  for a, b in zip(steps["cuda", v][0], steps["cpu", v][0]))
-        l2s = {v: path_c.update_errors(steps["cuda", v][1],
-                                       steps["cpu", v][1]) for v in views}
-        l2, worst = l2s["cuda"]
-        l2_64 = path_c.update_errors(upd, upd64)[0]
-        # path C's bound on the CPU's view; on the card's view also each
-        # device's own move between the two views (the card's ReLU
-        # near-tie, PERF.md)
-        bounds = {"cpu": 3 * cpu_l2 + 1e-3,
-                  "cuda": 3 * max(cpu_l2, *sens.values()) + 1e-3}
         name = "triplet" if triplet else "plain"
-        print(f"path E3, seed {seed}, {name}: the labeled view on the card "
-              f"vs the CPU's "
-              f"on the same draws: max_abs_err {view_err:.3e} (bound "
-              f"{E3_VIEW_TOL}); the float32 step, card vs CPU (B=4, {len(x)} "
-              f"images, 112 px): stats {got} vs {ref}, worst relative error "
-              f"on either view {rel:.3e} (bound {TRAIN_TOL_F32_LOSS}); SGD "
-              f"updates relative L2 on the CPU's view {l2s['cpu'][0]:.3e} "
-              f"(bound {bounds['cpu']:.3e}: the CPU's float32 step is "
-              f"{cpu_l2:.3e} from float64), on the card's {l2:.3e} (worst "
-              f"tensor {worst:.3e}; bound {bounds['cuda']:.3e}: a view's "
-              f"last bits move the CPU's step by {sens['cpu']:.3e}, the "
-              f"card's by {sens['cuda']:.3e}); the card against float64 "
-              f"{l2_64:.3e}", flush=True)
-        if view_err > E3_VIEW_TOL:
-            fail(f"path E3: the {name} step's view differs on the card")
-        if rel > TRAIN_TOL_F32_LOSS or any(l2s[v][0] > bounds[v]
-                                           for v in views):
-            fail(f"path E3: the {name} step on the card differs from the "
-                 "CPU's")
-        out[name] = {"view_max_abs_err": view_err, "loss_rel_err": rel,
-                     "update_l2_err": l2, "update_l2_err_cpu_view":
-                         l2s["cpu"][0], "update_l2_err_vs_f64": l2_64,
-                     "cpu_f32_vs_f64_l2": cpu_l2,
-                     "view_sensitivity_l2": sens}
+        out[name] = cross_device_step(
+            f"path E3, seed {seed}, {name}", cfg, (x, t), seed,
+            lambda dev, view: path_e.step_once(cfg, model, view, t, dev, seed),
+            lambda view: path_e.step_float64(cfg, model, view, t, seed))[0]
     return out
 
 
@@ -1686,7 +1764,10 @@ def phase_supervised(seed: int, out_dir: Path, data2):
           f"path)", flush=True)
     if launches:
         fail("path E launched the RandAugment kernel")
-    shutil.rmtree(out_dir, ignore_errors=True)
+    # E1's checkpoints stay: path H3 grafts the latest; main removes them
+    shutil.rmtree(out_dir / "log", ignore_errors=True)
+    out["e1_checkpoint"] = str(out_dir / "ckpt" /
+                               f"epoch_{out['e4_checkpoint_epoch']}")
     out.update({"e1": {"step_ms_median": med, "step_ms_min": min(step_ms),
                        "step_ms_max": max(step_ms),
                        "images_per_s": [r["throughput/images_per_sec"]
@@ -2509,11 +2590,530 @@ def phase_semiformer(seed: int, out_dir: Path, data2):
     out["g3"] = semiformer_learn(seed, out_dir, data2)
     return out
 
+# -- paths H, I, J --------------------------------------------------------------
+
+
+def _marked_steps(trainer, attr: str, run, steps: int):
+    """``run()`` with ``trainer.<attr>`` (a step) marked by CUDA events and
+    the peak memory reset: ``(step ms array, wall s, peak bytes, run's
+    result)``; a warm-up of the same call first."""
+    import torch
+
+    marks = []
+    step = getattr(trainer, attr)
+
+    def marked(*a, **k):
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        marks.append(mark)
+        return step(*a, **k)
+
+    setattr(trainer, attr, marked)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run()
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    setattr(trainer, attr, step)
+    if len(marks) != steps:
+        fail(f"{attr} ran {len(marks)} times, {steps} expected")
+    step_ms = np.array([a.elapsed_time(z)
+                        for a, z in zip(marks, marks[1:] + [end])])
+    return step_ms, wall_s, torch.cuda.max_memory_allocated(), out
+
+
+def ezbm_step_matches_cpu(seed: int):
+    """Path H1 for one seed: EZBM's stage-1 step by E3's method (the
+    memorized features too), then a stage-2 step on the CPU's memorized
+    features with the same draws and dropout mask: SGD card vs CPU, and
+    Adam on the card with every tensor outside ``fc`` unmoved."""
+    cfg = path_e.step_config(path_e.EZBM, True)
+    model = path_c.seeded_model(cfg, seed, path_c.HEAD_STD,
+                                PART1_RESIDUAL_GAMMA)
+    x, t = path_e.step_batch(cfg, seed)
+    out, steps, _ = cross_device_step(
+        f"path H1, seed {seed}, stage 1", cfg, (x, t), seed,
+        lambda dev, view: path_h.stage1_once(cfg, model, view, t, dev, seed),
+        lambda view: path_h.stage1_float64(cfg, model, view, t, seed))
+    fts_err = max(float((steps["cuda", v][2] - steps["cpu", v][2]).abs().max()
+                        / steps["cpu", v][2].abs().max()) for v in ("cuda", "cpu"))
+    feats = steps["cpu", "cuda"][2]
+    draws = path_h.stage2_draws(cfg, t, seed)
+    s2 = {dev: path_h.stage2_once(cfg, model, feats, draws, dev, seed)
+          for dev in ("cpu", "cuda")}
+    loss_rel = abs(s2["cuda"][0] - s2["cpu"][0]) / abs(s2["cpu"][0])
+    fc = [k for k in s2["cpu"][1] if k.startswith("fc.")]
+    fc_l2 = path_c.update_errors({k: s2["cuda"][1][k] for k in fc},
+                                 {k: s2["cpu"][1][k] for k in fc})[0]
+    bn_err = max(float((g - w).abs().max() / w.abs().max())
+                 for g, w in zip(s2["cuda"][2], s2["cpu"][2]))
+    _, adam, _ = path_h.stage2_once(cfg, model, feats, draws, "cuda", seed,
+                                    "Adam")
+    moved = [k for k, d in adam.items() if not k.startswith("fc.") and d.any()]
+    still = [k for k in fc if not adam[k].any()]
+    lam = draws[3]
+    print(f"path H1, seed {seed}: memorized anchor features, card vs CPU, "
+          f"{fts_err:.3e} of their largest (bound {TRAIN_TOL_F32_LOSS}); "
+          f"stage 2 ({len(draws[1])} pairs of {len(feats)} memorized rows, "
+          f"lam {float(lam.min()):.3f}..{float(lam.max()):.3f}, one dropout "
+          f"mask): loss {s2['cuda'][0]} vs {s2['cpu'][0]}, relative error "
+          f"{loss_rel:.3e} (bound {TRAIN_TOL_F32_LOSS}); fc's SGD update "
+          f"relative L2 {fc_l2:.3e} (bound {H1_STAGE2_TOL}); the head's BN "
+          f"statistics after both passes {bn_err:.3e} of their largest "
+          f"(bound {TRAIN_TOL_F32_LOSS}); Adam on the card: tensors outside "
+          f"fc moved {len(moved)} {moved[:3]}, fc tensors unmoved {still}",
+          flush=True)
+    if (fts_err > TRAIN_TOL_F32_LOSS or loss_rel > TRAIN_TOL_F32_LOSS
+            or fc_l2 > H1_STAGE2_TOL or bn_err > TRAIN_TOL_F32_LOSS):
+        fail("path H1: the EZBM step on the card differs from the CPU's")
+    if moved or still:
+        fail("path H1: stage 2 under Adam moved a tensor outside fc, or not "
+             "fc")
+    out.update({"fts_rel_err": fts_err, "stage2_loss_rel_err": loss_rel,
+                "stage2_fc_update_l2_err": fc_l2, "stage2_bn_rel_err": bn_err})
+    return out
+
+
+def ezbm_full(seed: int, data2):
+    """Path H2: EZBM's stage-1 step at kaggle_supervised_ezbm's full width
+    (96 images at 224 px), then its stage 2 on the memory (192 features a
+    step): the sampler's host time, the step's card time and enqueue."""
+    import torch
+
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.models import build_model
+
+    cfg = path_c.train_config(path_e.EZBM, TRAIN={"SAVE_CP": "",
+                                                  "LOG_DIR": ""})
+    torch.manual_seed(seed)
+    trainer = learn.make_trainer(cfg, build_model(cfg), device="cuda",
+                                 trainer_override="ezbm")
+    learn.configure(trainer, cfg, path_e.supervised_data(cfg, data2))
+    b = int(cfg.DATA.BATCH_SIZE)
+    images = 3 * b
+    trainer.n_iter_per_epoch = TRIPLET_WARMUP_STEPS
+    t0 = time.perf_counter()
+    trainer.train_one_stage_1(1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    trainer.n_iter_per_epoch = TRIPLET_TIMED_STEPS
+    step_ms, wall_s, peak, meter = _marked_steps(
+        trainer, "_stage1_step", lambda: trainer.train_one_stage_1(2),
+        TRIPLET_TIMED_STEPS)
+    med = float(np.median(step_ms))
+    flops = train_flops_per_image(trainer.state.model,
+                                  trainer.img_size) * images
+    share = flops / (med * 1e-3) / H100_BF16_FLOPS
+    mem = trainer.mem_features
+    width = trainer.state.model.backbone.num_features
+    mem_ok = (len(mem) == TRIPLET_TIMED_STEPS
+              and all(f.device.type == trainer.device.type
+                      and f.shape == (b, width) for f in mem))
+
+    trainer._new_stage2_optimizer()
+    targets = np.concatenate(trainer.mem_targets)
+    bs2 = b * int(cfg.DATA.MU)
+    per_epoch = max(len(targets) // bs2, 1)
+    rng = np.random.default_rng(seed)
+
+    def draw():
+        idx, dual = trainer._sample_stage2_batch(targets, bs2, rng)
+        return idx, dual, trainer._stage2_lam(targets[idx], targets[dual])
+
+    t0 = time.perf_counter()
+    for _ in range(5):
+        draw()
+    sampler_ms = (time.perf_counter() - t0) * 200
+    idx, dual, lam = draw()
+    feats = torch.cat(mem)
+
+    def dev(a, dtype=torch.long):
+        return torch.as_tensor(a).to(trainer.device, dtype)
+
+    args = (feats[dev(idx)], dev(targets[idx]), feats[dev(dual)],
+            dev(targets[dual]), dev(lam, torch.float32))
+    core_ms = cuda_ms(lambda: trainer._stage2_core(*args), iters=10)
+    core_host_ms = host_ms(lambda: trainer._stage2_core(*args), iters=5)
+    t0 = time.perf_counter()
+    epochs = 3
+    losses = [trainer.train_one_stage_2(e).avg for e in range(epochs)]
+    torch.cuda.synchronize()
+    s2_ms = (time.perf_counter() - t0) * 1e3 / (epochs * per_epoch)
+    out = {"step_ms_median": med, "step_ms_min": float(step_ms.min()),
+           "step_ms_max": float(step_ms.max()),
+           "images_per_s": images * len(step_ms) / wall_s,
+           "flops_per_step": flops, "flop_share": share, "peak_bytes": peak,
+           "stage2_step_ms": s2_ms, "stage2_sampler_ms": sampler_ms,
+           "stage2_host_share": sampler_ms / s2_ms,
+           "stage2_core_ms": core_ms, "stage2_core_host_ms": core_host_ms,
+           "stage2_steps_per_epoch": per_epoch}
+    print(f"path H2: stage 1, {len(step_ms)} steps of {images} images ({b} "
+          f"anchors, positives, negatives; {trainer.img_size} px, "
+          f"{trainer.dtype}) after {TRIPLET_WARMUP_STEPS} warm-up steps "
+          f"({warm_s:.2f} s): step ms (CUDA events) median {med:.3f}, min "
+          f"{step_ms.min():.3f}, max {step_ms.max():.3f}; "
+          f"{out['images_per_s']:.1f} images/s; mean loss {meter.avg:.4f}; "
+          f"model FLOPs per step {flops} ({flops / images:.4e} per image), "
+          f"{share:.4f} of the dense bf16 peak; peak memory {peak} B; the "
+          f"memory {len(mem)} x {tuple(mem[0].shape)} on the card {mem_ok}. "
+          f"Stage 2 ({bs2} features a step, {per_epoch} step(s) an epoch of "
+          f"{len(targets)} memorized rows): train_one_stage_2 {s2_ms:.3f} ms "
+          f"a step (host clock, synchronized; losses {np.round(losses, 4).tolist()}"
+          f"), of which the numpy sampler {sampler_ms:.3f} ms "
+          f"({sampler_ms / s2_ms:.3f} of it); the step's device work "
+          f"{core_ms:.4f} ms (CUDA events), its host enqueue "
+          f"{core_host_ms:.4f} ms", flush=True)
+    if not (mem_ok and np.isfinite(meter.avg) and np.isfinite(losses).all()):
+        fail("path H2: the memory or a loss is wrong")
+    return out
+
+
+def ezbm_capsule(seed: int, out_dir: Path, donor: str):
+    """Path H3: ``prepare_trainer`` and ``fit`` (``run_config``'s two
+    calls) on kvasir_capsule_transfer's fields with E1's checkpoint as
+    ``PRE_TRAIN_PATH``: the graft, both stages, the stage-2 optimizer, the
+    checkpoints."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from endoscopy_tpu_torch.ckpt import io as ckpt_io
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.models import build_model
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = path_c.train_config(path_h.CAPSULE, MODEL={"PRE_TRAIN_PATH": donor},
+                              TRAIN={**path_h.CAPSULE_CUTS,
+                                     "SAVE_CP": str(out_dir / "ckpt"),
+                                     "LOG_DIR": ""})
+    t0 = time.perf_counter()
+    data = path_h.capsule_data(cfg, path_h.CAPSULE_SIZES, seed)
+    data_s = time.perf_counter() - t0
+    torch.manual_seed(seed)
+    model = build_model(cfg)
+    fresh = {k: v.clone() for k, v in model.state_dict().items()
+             if k.startswith(("fc.", "head_emb."))}
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = learn.prepare_trainer(cfg, model=model, device="cuda",
+                                        data=data, trainer_override="ezbm")
+    donor_sd = ckpt_io.restore_checkpoint(donor, "cpu")[0]["model"]
+    got, ema = trainer.state.model.state_dict(), trainer.state.ema.state_dict()
+    trunk = [k for k in donor_sd if k.startswith("backbone.")]
+    off = [k for k in trunk if not (torch.equal(got[k].cpu(), donor_sd[k])
+                                    and torch.equal(ema[k].cpu(), donor_sd[k]))]
+    stale = [k for k, v in fresh.items() if not torch.equal(got[k].cpu(), v)]
+
+    events, stage = [], [1]
+    s1, s2, ev = (trainer.train_one_stage_1, trainer.train_one_stage_2,
+                  trainer.evaluate_one)
+    new_opt, save = trainer._new_stage2_optimizer, trainer.save_checkpoint
+
+    def one(s, fn):
+        def run(epoch):
+            stage[0] = s
+            meter = fn(epoch)
+            events.append(("train", s, epoch, meter.avg, trainer.state.step))
+            return meter
+        return run
+
+    def evaluate(*a, **k):
+        loss, metric = ev(*a, **k)
+        events.append(("eval", stage[0], trainer.epoch, loss.avg,
+                       float(metric["macro/f1"])))
+        return loss, metric
+
+    def switched():
+        new_opt()
+        events.append(("opt2", trainer._opt2 is not trainer.state.optimizer,
+                       trainer._opt2_count, len(trainer._opt2.state)))
+
+    def saved(folder):
+        events.append(("save", stage[0], trainer.epoch))
+        return save(folder)
+
+    trainer.train_one_stage_1, trainer.train_one_stage_2 = one(1, s1), one(2, s2)
+    trainer.evaluate_one, trainer._new_stage2_optimizer = evaluate, switched
+    trainer.save_checkpoint = saved
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    best, want = None, []  # the loss ∧ F1 gate, saving in stage 2 only
+    for e in events:
+        if e[0] == "eval" and (best is None or (best[0] > e[3]
+                                                and best[1] < e[4])):
+            best = e[3:]
+            if e[1] == 2:
+                want.append(("save", 2, e[2]))
+    saves = [e for e in events if e[0] == "save"]
+    files = sorted(p.name for p in (out_dir / "ckpt").iterdir()) if (
+        out_dir / "ckpt").exists() else []
+    trains = [e for e in events if e[0] == "train"]
+    opt2 = [e for e in events if e[0] == "opt2"]
+    epochs = int(cfg.TRAIN.EPOCHS)
+    s1_steps = trainer.n_iter_per_epoch * epochs
+    print(f"path H3: {len(data[0].manifest)} train / {len(data[1].manifest)} "
+          f"valid 11-class images made in {data_s:.2f} s; {Path(donor).name} "
+          f"of E1 as PRE_TRAIN_PATH: trunk tensors {len(trunk)}, not "
+          f"bit-identical in the model or the EMA {len(off)}, fc/head_emb "
+          f"tensors not fresh {stale}; fit {fit_s:.2f} s: per epoch (stage, "
+          f"epoch, train loss, step count) {[e[1:] for e in trains]}; "
+          f"evaluations (stage, epoch, valid loss, macro-F1) "
+          f"{[e[1:] for e in events if e[0] == 'eval']}; the stage-2 "
+          f"optimizer (new, count, state entries) {[e[1:] for e in opt2]}; "
+          f"saves {saves} (the gate selects {want}), files {files}",
+          flush=True)
+    if off or not trunk or stale:
+        fail("path H3: the graft did not keep the trunk and fresh heads")
+    if ([e[1:3] for e in trains] != [(s, e) for s in (1, 2)
+                                     for e in range(1, epochs + 1)]
+            or opt2 != [("opt2", True, 0, 0)]
+            or trainer.state.step != s1_steps + trainer._opt2_count
+            or not all(np.isfinite(e[3]) for e in trains)):
+        fail("path H3: the stages, the stage-2 optimizer or a loss is wrong")
+    if saves != want or files != [f"epoch_{e[2]}" for e in want]:
+        fail("path H3: checkpoints other than stage 2's gate selects")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"trunk_tensors": len(trunk), "fit_s": fit_s,
+            "train": [e[1:] for e in trains], "saves": [e[2] for e in saves],
+            "stage2_steps": trainer._opt2_count}
+
+
+def phase_ezbm(seed: int, out_dir: Path, data2, donor: str):
+    """Path H: the EZBM trainer, H1-H3; no kernel runs on it."""
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    rk.randaugment_mc.launches = 0
+    out = {"h1": {s: ezbm_step_matches_cpu(s)
+                  for s in range(seed, seed + PART1_SEEDS)},
+           "h2": ezbm_full(seed, data2),
+           "h3": ezbm_capsule(seed, out_dir, donor)}
+    out["launches"] = rk.randaugment_mc.launches
+    print(f"path H: randaugment_mc launches {out['launches']} (no kernel on "
+          "this path)", flush=True)
+    if out["launches"]:
+        fail("path H launched the RandAugment kernel")
+    return out
+
+
+def effnet_step_matches_cpu(seed: int):
+    """Path I1 for one seed: kaggle_supervised_abnorm's EfficientNet-B1 step
+    by E3's method; then bf16 on the card against the CPU's float32 step on
+    the card's view, and a bf16 control on the un-augmented eval view that
+    the update bound must refuse."""
+    import torch
+
+    from endoscopy_tpu_torch.aug.views import eval_view
+
+    cfg = path_e.step_config(path_i.ABNORM, False)
+    model = path_c.seeded_model(cfg, seed, path_c.HEAD_STD)
+    x, t = path_e.step_batch(cfg, seed)
+    out, steps, views = cross_device_step(
+        f"path I1, seed {seed}", cfg, (x, t), seed,
+        lambda dev, view: path_e.step_once(cfg, model, view, t, dev, seed),
+        lambda view: path_e.step_float64(cfg, model, view, t, seed))
+    ref = steps["cpu", "cuda"]
+    cfg.TRAIN.DTYPE = "bfloat16"
+    # the views rounded to bf16, as the trainer's bf16 views are (autocast
+    # casts the float32 copy the same way)
+    for name, view in (("bfloat16", views["cuda"].bfloat16().float()),
+                       ("control", eval_view(x, int(cfg.DATA.IMG_SIZE),
+                                             torch.bfloat16,
+                                             device="cuda").float())):
+        got = path_e.step_once(cfg, model, view, t, "cuda", seed)
+        rel = abs(got[0][0] - ref[0][0]) / abs(ref[0][0])
+        l2 = path_c.update_errors(got[1], ref[1])[0]
+        print(f"path I1, seed {seed}: {name} on the card vs float32 on the "
+              f"CPU{' (the un-augmented eval view)' if name == 'control' else ''}"
+              f": loss {got[0][0]} vs {ref[0][0]}, relative error {rel:.3e} "
+              f"(bound {TRAIN_TOL_BF16_LOSS}); updates relative L2 {l2:.3e} "
+              f"(bound {I1_TOL_BF16_UPDATE})", flush=True)
+        out[name] = {"loss_rel_err": rel, "update_l2_err": l2}
+    if (out["bfloat16"]["loss_rel_err"] > TRAIN_TOL_BF16_LOSS
+            or out["bfloat16"]["update_l2_err"] > I1_TOL_BF16_UPDATE):
+        fail("path I1: the bf16 step on the card differs from the CPU's")
+    if out["control"]["update_l2_err"] <= I1_TOL_BF16_UPDATE:
+        fail("path I1: the bf16 bound passes a step on the un-augmented view")
+    return out
+
+
+def supervised_timed(cfg, seed: int, steps: int, label: str):
+    """The supervised trainer on ``cfg`` from flax's initializer under
+    ``torch.manual_seed(seed)``, on ``path_e``'s seeded canonical rows:
+    ``TRIPLET_WARMUP_STEPS`` warm-up steps, then ``steps`` marked ones.
+    Returns the readings."""
+    import torch
+
+    from endoscopy_tpu_torch.models import build_model
+    from endoscopy_tpu_torch.train.supervised import SupLearning
+
+    torch.manual_seed(seed)
+    trainer = SupLearning(build_model(cfg), cfg.TRAIN.OPT_NAME, device="cuda")
+    trainer.get_dataloader(path_e._Rows(cfg, seed), None)
+    k = int(cfg.MODEL.NUM_CLASSES)
+    trainer.get_config(cfg, cls_num_list=[1] * k,
+                       labeled_targets=path_c.labeled_targets(cfg, seed))
+    images = trainer._images_per_step()
+    trainer.n_iter_per_epoch = TRIPLET_WARMUP_STEPS
+    t0 = time.perf_counter()
+    trainer.train_one(1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    trainer.n_iter_per_epoch = steps
+    step_ms, wall_s, peak, meter = _marked_steps(
+        trainer, "_train_step", lambda: trainer.train_one(2), steps)
+    med = float(np.median(step_ms))
+    flops = train_flops_per_image(trainer.state.model,
+                                  trainer.img_size) * images
+    share = flops / (med * 1e-3) / H100_BF16_FLOPS
+    print(f"{label}: {steps} steps of {images} images ({cfg.MODEL.NAME}, "
+          f"{trainer.img_size} px, {trainer.dtype}, {type(trainer.state.model).__name__}"
+          f") after {TRIPLET_WARMUP_STEPS} warm-up steps ({warm_s:.2f} s): "
+          f"step ms (CUDA events) median {med:.3f}, min {step_ms.min():.3f}, "
+          f"max {step_ms.max():.3f}; {images * steps / wall_s:.1f} images/s; "
+          f"mean loss {meter.avg:.4f}; model FLOPs per step {flops} "
+          f"({flops / images:.4e} per image), {share:.4f} of the dense bf16 "
+          f"peak; peak memory {peak} B", flush=True)
+    if not np.isfinite(meter.avg):
+        fail(f"{label}: mean loss {meter.avg}")
+    return {"step_ms_median": med, "step_ms_min": float(step_ms.min()),
+            "step_ms_max": float(step_ms.max()),
+            "images_per_s": images * steps / wall_s, "flops_per_step": flops,
+            "flop_share": share, "peak_bytes": peak, "loss": meter.avg}
+
+
+def phase_effnet(seed: int):
+    """Path I: EfficientNet-B1, I1-I2; no kernel runs on it."""
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    rk.randaugment_mc.launches = 0
+    out = {"i1": {s: effnet_step_matches_cpu(s)
+                  for s in range(seed, seed + PART1_SEEDS)}}
+    abnorm = path_c.train_config(path_i.ABNORM, TRAIN={"SAVE_CP": "",
+                                                       "LOG_DIR": ""})
+    out["i2"] = supervised_timed(abnorm, seed, TRIPLET_TIMED_STEPS,
+                                 "path I2, kaggle_supervised_abnorm")
+    sup = path_c.train_config(path_i.SUPERVISED, TRAIN={"SAVE_CP": "",
+                                                        "LOG_DIR": ""})
+    out["i2_supervised"] = supervised_timed(sup, seed, 3,
+                                            "path I2, kaggle_supervised")
+    out["launches"] = rk.randaugment_mc.launches
+    print(f"path I: randaugment_mc launches {out['launches']} (no kernel on "
+          "this path)", flush=True)
+    if out["launches"]:
+        fail("path I launched the RandAugment kernel")
+    return out
+
+
+def _calm_sasa(model) -> None:
+    """Path J1's conditioning: every SASA layer's q kernel x J1_Q_SCALE."""
+    import torch
+
+    from endoscopy_tpu_torch.models.attention import SASALayer
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SASALayer):
+                m.q_conv.weight.mul_(J1_Q_SCALE)
+
+
+def real5_full(seed: int):
+    """Path J2: ``train_one`` at real_5's full width (the SASA ResNet-50,
+    416 images a step at 112 px), and the kernel on the step's own input."""
+    from unittest import mock
+
+    import torch
+
+    from endoscopy_tpu_torch.aug import views
+    from endoscopy_tpu_torch.aug.randaugment import randaugment_mc_plain
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+    from endoscopy_tpu_torch.train.fixmatch import FixMatch
+
+    config = path_c.train_config(path_j.REAL_5)
+    img = int(config.DATA.IMG_SIZE)
+    b, bu = int(config.DATA.BATCH_SIZE), int(config.DATA.BATCH_SIZE) * int(config.DATA.MU)
+    images = b + 2 * bu
+    model = path_c.seeded_model(config, seed, path_c.HEAD_STD)
+    flops = train_flops_per_image(model, img) * images
+    trainer = FixMatch(model, config.TRAIN.OPT_NAME, device="cuda")
+    trainer.get_config(config, labeled_targets=path_c.labeled_targets(config, seed))
+    step_ms, med, wall_s, warm_s, peak, launches, loss = timed_train_one(
+        trainer, config, seed, "J2")
+    steps = TRAIN_TIMED_STEPS
+    share = flops / (med * 1e-3) / H100_BF16_FLOPS
+
+    seen = []
+    kernel = views.randaugment_mc
+
+    def recording(x, pi, pf, *a, **k):
+        seen.append((x.clone(), pi.clone(), pf.clone(), k))
+        return kernel(x, pi, pf, *a, **k)
+
+    x_u8, t, u_u8 = path_c.canonical_batches(config, seed, 1)[0]
+    with mock.patch.object(views, "randaugment_mc", recording):
+        trainer._train_step(torch.from_numpy(x_u8).cuda(),
+                            torch.from_numpy(t).cuda(),
+                            torch.from_numpy(u_u8).cuda(),
+                            trainer.class_weights)
+    xk, pi, pf, kw = seen[0]
+    err = float((rk.randaugment_mc(xk, pi, pf, **kw).float()
+                 - randaugment_mc_plain(xk, pi, pf, **kw).float()).abs().max())
+    kern_ms = cuda_ms(lambda: rk.randaugment_mc(xk, pi, pf, **kw), iters=50,
+                      warmup=3)
+    plain_ms = cuda_ms(lambda: randaugment_mc_plain(xk, pi, pf, **kw),
+                       iters=2, warmup=1)
+    bytes_moved = 2 * xk.numel() * xk.element_size() + pi.numel() * 4 + pf.numel() * 4
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    print(f"path J2: {steps} steps of {images} images ({config.MODEL.NAME}, B={b}, "
+          f"B*MU={bu}, {img} px, bf16, SGD) after {TRAIN_WARMUP_STEPS} "
+          f"warm-up steps ({warm_s:.2f} s); step ms (CUDA events between "
+          f"steps) median {med:.3f}, min {step_ms.min():.3f}, max "
+          f"{step_ms.max():.3f}, all {np.round(step_ms, 3).tolist()}; wall "
+          f"{wall_s:.3f} s, {images * steps / wall_s:.1f} images/s; mean "
+          f"loss {loss:.4f}; randaugment_mc launches {launches}; peak memory "
+          f"{peak} B; model FLOPs per step {flops} ({flops / images:.4e} per "
+          f"image: convolutions, the head, SASA's two products; forward + "
+          f"both gradients), {share:.4f} of the dense bf16 peak", flush=True)
+    print(f"path J2: randaugment_mc crop-fused (crop {kw.get('crop_size')}, "
+          f"pad {kw.get('pad')}) on the step's strong-view input "
+          f"{tuple(xk.shape)} {xk.dtype}: kernel vs plain version "
+          f"max_abs_err={err} (tol 0.0); kernel {kern_ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bytes_moved} B at "
+          f"{HBM_BYTES_PER_S:.3g} B/s)", flush=True)
+    if err != 0.0 or kw.get("pad") != int(img * 0.125) or tuple(
+            xk.shape) != (bu, img, img, 3):
+        fail(f"path J2: the kernel differs from the plain version ({err}) "
+             f"or ran at another shape or without the fused pad ({kw})")
+    return {"step_ms_median": med, "step_ms_min": float(step_ms.min()),
+            "step_ms_max": float(step_ms.max()),
+            "images_per_s": images * steps / wall_s, "peak_bytes": peak,
+            "flops_per_step": flops, "flop_share": share,
+            "launches_per_step": launches / steps, "kernel_ms": kern_ms,
+            "kernel_max_abs_err": err, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bytes": bytes_moved,
+            "shape": list(xk.shape)}
+
+
+def phase_real5(seed: int):
+    """Path J: FixMatch on the SASA ResNet-50, J1-J2."""
+    out = {"j1": {s: train_step_matches_cpu(
+        s, path_j.REAL_5, "path J1", _calm_sasa)
+        for s in range(seed, seed + PART1_SEEDS)}}
+    out["j2"] = real5_full(seed)
+    return out
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
+
+    import shutil
 
     import torch
     if not torch.cuda.is_available():
@@ -2577,6 +3177,21 @@ def main(argv=None) -> int:
     print(f"path G took {time.perf_counter() - t0:.1f} s", flush=True)
     print("path G: " + json.dumps(sf_row), flush=True)
     g2, g3 = sf_row["g2"], sf_row["g3"]
+    t0 = time.perf_counter()
+    ezbm_row = phase_ezbm(args.seed, scratch / "path_h", data2,
+                          sup_row["e1_checkpoint"])
+    shutil.rmtree(scratch / "path_e", ignore_errors=True)
+    print(f"path H took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("path H: " + json.dumps(ezbm_row), flush=True)
+    t0 = time.perf_counter()
+    effnet_row = phase_effnet(args.seed)
+    print(f"path I took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("path I: " + json.dumps(effnet_row), flush=True)
+    t0 = time.perf_counter()
+    real5_row = phase_real5(args.seed)
+    print(f"path J took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("path J: " + json.dumps(real5_row), flush=True)
+    j2 = real5_row["j2"]
 
     kernels = [{
         "name": "randaugment_mc", "route": "cuda",
@@ -2619,6 +3234,14 @@ def main(argv=None) -> int:
                        g3["launches_steps_per_epoch"],
                    "g3_real_2_1_launches_per_step":
                        g3["real_2_1_launches_per_step"]},
+        "path_h": {"launches": ezbm_row["launches"]},
+        "path_i": {"launches": effnet_row["launches"]},
+        "path_j": {"launches_per_step": j2["launches_per_step"],
+                   "max_abs_err": j2["kernel_max_abs_err"],
+                   "ms": j2["kernel_ms"], "plain_ms": j2["plain_ms"],
+                   "bound_ms": j2["bound_ms"], "bound_by": "bytes",
+                   "shape": j2["shape"], "mode": "crop+pad",
+                   "pad": int(path_j.REAL_5["DATA"]["IMG_SIZE"] * 0.125)},
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

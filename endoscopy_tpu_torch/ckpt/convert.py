@@ -4,8 +4,10 @@
 or ``ModelwEmb`` trees, or the bare ``Conformer`` tree (no ``backbone``
 scope; nested dicts of numpy arrays), and returns the port's
 ``state_dict``. For the ResNet it keeps its own copy of the key map behind
-the JAX package's ``export_resnet_torch_state``; the Conformer's port
-names are its flax module paths joined by dots. In both:
+the JAX package's ``export_resnet_torch_state`` (a SASA layer in
+``conv2``'s place keeps its flax names: ``conv2.q_conv``, ...,
+``conv2.rel_encoding_h``); the Conformer's and the EfficientNet's port
+names are their flax module paths joined by dots. In all:
 
 - conv kernels go HWIO → OIHW;
 - dense kernels are transposed: the linear head's ``head.fc``, and
@@ -16,7 +18,9 @@ names are its flax module paths joined by dots. In both:
   too); a LayerNorm's ``scale``/``bias`` (no statistics) become
   ``weight``/``bias``;
 - the Conformer's dense kernels include ``qkv``, whose output order
-  ``(3, heads, head_dim)`` is kept; its ``cls_token`` is copied as it is.
+  ``(3, heads, head_dim)`` is kept; its ``cls_token``, and SASA's relative
+  encodings, are copied as they are; a depthwise kernel ``(k, k, 1, C)``
+  becomes ``(C, 1, k, k)`` like any other.
 
 ``write_npz``/``read_npz`` store the two trees as one flat ``.npz`` (keys
 like ``params/backbone/conv1/kernel``), so a dump made beside the JAX
@@ -79,8 +83,8 @@ def _walk(tree: Mapping, path: Tuple[str, ...]):
 
 def _bare_items(params: Mapping, batch_stats: Optional[Mapping],
                 path: Tuple[str, ...] = ()):
-    """``(port key, value)`` for a tree without a ``backbone`` scope (the
-    Conformer): the flax path joined by dots."""
+    """``(port key, value)`` for a tree whose port names are its flax paths
+    joined by dots (the Conformer, the EfficientNet, a SASA layer)."""
     for name, node in params.items():
         at = path + (name,)
         key = ".".join(at)
@@ -104,15 +108,8 @@ def _bare_items(params: Mapping, batch_stats: Optional[Mapping],
             yield from _bare_items(node, batch_stats, at)
 
 
-def _port_items(params: Mapping, batch_stats: Optional[Mapping]):
-    """``(port key, value)`` for a flax ``ClassifierHead``- or
-    ``ModelwEmb``-shaped tree, or a bare one (the Conformer); the BN
-    running statistics too when ``batch_stats`` is given."""
-    if "backbone" not in params:
-        yield from _bare_items(params, batch_stats)
-        return
-    p_bb = params["backbone"]
-    b_bb = None if batch_stats is None else batch_stats.get("backbone", {})
+def _resnet_items(p_bb: Mapping, b_bb: Optional[Mapping]):
+    """``(port key, value)`` of a flax ResNet trunk, through the key map."""
     for tkey, path in _key_map(_stage_sizes(p_bb)).items():
         node = _walk(p_bb, path)
         if node is None:  # a block without a downsample
@@ -120,6 +117,9 @@ def _port_items(params: Mapping, batch_stats: Optional[Mapping]):
         if "kernel" in node:
             yield (f"backbone.{tkey}.weight",
                    np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+            continue
+        if "scale" not in node:  # a SASA layer in conv2's place
+            yield from _bare_items(node, None, (f"backbone.{tkey}",))
             continue
         yield f"backbone.{tkey}.weight", node["scale"]
         yield f"backbone.{tkey}.bias", node["bias"]
@@ -129,6 +129,21 @@ def _port_items(params: Mapping, batch_stats: Optional[Mapping]):
                 raise KeyError(f"batch_stats has no entry for {path}")
             yield f"backbone.{tkey}.running_mean", stats["mean"]
             yield f"backbone.{tkey}.running_var", stats["var"]
+
+
+def _port_items(params: Mapping, batch_stats: Optional[Mapping]):
+    """``(port key, value)`` for a flax ``ClassifierHead``- or
+    ``ModelwEmb``-shaped tree, or a bare one (the Conformer); the BN
+    running statistics too when ``batch_stats`` is given."""
+    if "backbone" not in params:
+        yield from _bare_items(params, batch_stats)
+        return
+    p_bb = params["backbone"]
+    b_bb = None if batch_stats is None else batch_stats.get("backbone", {})
+    if _stage_sizes(p_bb):
+        yield from _resnet_items(p_bb, b_bb)
+    else:  # the EfficientNet
+        yield from _bare_items({"backbone": p_bb}, batch_stats)
     heads = ((("head", "fc"),) if "head" in params else
              (("fc", "fc1"), ("fc", "bn"), ("fc", "fc2"),
               ("head_emb", "proj1"), ("head_emb", "proj2")))

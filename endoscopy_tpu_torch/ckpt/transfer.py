@@ -19,13 +19,18 @@ the model's own initialization. After the graft the EMA teacher is
 re-synced to the model, as the reference's EMA copies the model after the
 transfer load.
 
-Of ``ckpt/torch_import.py`` the ResNet and Conformer maps are ported.
-The port's ResNet keeps torchvision's module names, so its key map is the
-``backbone.`` prefix; the port's Conformer keeps the reference's names, so
-its map is the identity. Each skips its heads (the ResNet's ``fc``/
-``head``/``classifier``; the Conformer's ``conv_cls_head``,
-``trans_cls_head`` and ``pooling``), whatever their shape. A ``.pth`` for
-another architecture raises (ROADMAP.md).
+Of ``ckpt/torch_import.py`` the ResNet, Conformer and EfficientNet maps
+are ported. The port's ResNet keeps torchvision's module names, so its
+key map is the ``backbone.`` prefix; the SASA ResNet's attention layer is
+named ``conv2`` with the reference's ``q_conv``/``k_conv``/``v_conv`` and
+``rel_encoding_h/w``, so the same prefix carries it. The port's Conformer
+keeps the reference's names, so its map is the identity. The port's
+EfficientNet keeps flax's names, so timm 0.5.4's module paths are renamed
+with the JAX package's rules, in their order, then prefixed. Each skips
+its heads (the ResNet's ``fc``/``head``/``classifier``; the Conformer's
+``conv_cls_head``, ``trans_cls_head`` and ``pooling``; the EfficientNet's
+``classifier``), whatever their shape. A ``.pth`` for another architecture
+raises (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,10 +49,38 @@ from endoscopy_tpu_torch.config.loader import is_none
 # a torch ModelwEmb checkpoint aliases every backbone tensor as
 # 'backbone.<idx>.<key>' (an nn.Sequential view) besides 'model.<key>'
 _ALIAS_RE = re.compile(r"^backbone\.\d+\.")
-# model family → (the prefix of its port names, its heads)
+# timm 0.5.4 EfficientNet module paths → the port's (flax's) names, applied
+# in order: blocks.0.* are DepthwiseSeparableConv (conv_pw IS the
+# projection), later stages InvertedResidual (conv_pw expands, conv_pwl
+# projects); stage{S}_block{B} count from 1
+_EFFICIENTNET_RENAMES = (
+    (r"^blocks\.0\.(\d+)\.conv_dw", r"blocks.0.\1.dw_conv"),
+    (r"^blocks\.0\.(\d+)\.bn1", r"blocks.0.\1.dw_bn"),
+    (r"^blocks\.0\.(\d+)\.conv_pw", r"blocks.0.\1.project_conv"),
+    (r"^blocks\.0\.(\d+)\.bn2", r"blocks.0.\1.project_bn"),
+    (r"^blocks\.(\d+)\.(\d+)\.conv_pwl", r"blocks.\1.\2.project_conv"),
+    (r"^blocks\.(\d+)\.(\d+)\.bn3", r"blocks.\1.\2.project_bn"),
+    (r"^blocks\.(\d+)\.(\d+)\.conv_pw", r"blocks.\1.\2.expand_conv"),
+    (r"^blocks\.(\d+)\.(\d+)\.bn1", r"blocks.\1.\2.expand_bn"),
+    (r"^blocks\.(\d+)\.(\d+)\.conv_dw", r"blocks.\1.\2.dw_conv"),
+    (r"^blocks\.(\d+)\.(\d+)\.bn2", r"blocks.\1.\2.dw_bn"),
+    (r"\.se\.conv_reduce", r".se_reduce"),
+    (r"\.se\.conv_expand", r".se_expand"),
+    (r"^blocks\.(\d+)\.(\d+)\.",
+     lambda m: f"stage{int(m.group(1)) + 1}_block{int(m.group(2)) + 1}."),
+    (r"^conv_stem", r"stem_conv"),
+    (r"^bn1", r"stem_bn"),
+    (r"^conv_head", r"head_conv"),
+    (r"^bn2", r"head_bn"),
+)
+# model family → (the prefix of its port names, its heads, the renames of
+# its module paths)
 _TORCH_MAPS = {
-    "resnet": ("backbone.", re.compile(r"^(fc|head|classifier)\b")),
-    "conformer": ("", re.compile(r"^(conv_cls_head|trans_cls_head|pooling)\b")),
+    "resnet": ("backbone.", re.compile(r"^(fc|head|classifier)\b"), ()),
+    "conformer": ("", re.compile(r"^(conv_cls_head|trans_cls_head|pooling)\b"),
+                  ()),
+    "efficientnet": ("backbone.", re.compile(r"^classifier\b"),
+                     _EFFICIENTNET_RENAMES),
 }
 
 
@@ -92,9 +125,10 @@ def import_torch_state(dst: Mapping[str, torch.Tensor],
                        model_name: str = "resnet"):
     """A reference state dict onto the port's names: ``module.`` and
     ``model.`` wrappers stripped, heads, ``num_batches_tracked`` and
-    aliases skipped, the family's prefix prepended. Returns ``(new state,
-    imported, shape mismatches, unmapped keys)``."""
-    _, (prefix, head_re) = _torch_map(model_name)
+    aliases skipped, the family's module renames applied, its prefix
+    prepended. Returns ``(new state, imported, shape mismatches, unmapped
+    keys)``."""
+    _, (prefix, head_re, renames) = _torch_map(model_name)
     mapped, mismatch, unmapped = {}, [], []
     for tkey, value in state_dict.items():
         key = tkey
@@ -104,7 +138,10 @@ def import_torch_state(dst: Mapping[str, torch.Tensor],
         if (_ALIAS_RE.match(key) or key.endswith("num_batches_tracked")
                 or head_re.match(key)):
             continue
-        name = prefix + key
+        module, _, leaf = key.rpartition(".")
+        for pattern, repl in renames:
+            module = re.sub(pattern, repl, module)
+        name = prefix + (f"{module}.{leaf}" if module else leaf)
         if name not in dst:
             unmapped.append(tkey)
         elif tuple(value.shape) != tuple(dst[name].shape):

@@ -14,15 +14,16 @@ at its own image size. ``TRAIN.IS_SSL`` with ``MODEL.TYPE_SEMI: FixMatch``,
 labeled and unlabeled loaders; SemiFormer's warmup epochs, before
 ``TRAIN.EVAL_STEP_SUP``, use the labeled one alone, and a resume past them
 starts in the FixMatch phase), ``TRAIN.IS_SSL: False`` the supervised
-trainer (its plain and triplet branches); ``MODEL.PRE_TRAIN_PATH`` grafts
+trainer (its plain and triplet branches), and ``--trainer ezbm`` the
+two-stage EZBM trainer (``train/ezbm.py``, given ``cls_num_list``, as
+the supervised trainer is); ``MODEL.PRE_TRAIN_PATH`` grafts
 a donor's trunk and ``MODEL.PRE_TRAIN_RESUME`` resumes a checkpoint (a
 directory of the port, or a JAX train state dumped to ``.npz``). SIGTERM
 checkpoints at the next epoch boundary and exits 143.
 
 pandas (the CSVs) and cv2 (the JPEGs) are imported only by
 :func:`build_data`, so a caller that brings its own loaders needs neither.
-Not ported yet (ROADMAP.md): ``--trainer ezbm``,
-``DATA.LOADER: native`` and ``--preview``.
+Not ported yet (ROADMAP.md): ``DATA.LOADER: native`` and ``--preview``.
 """
 
 from __future__ import annotations
@@ -77,8 +78,13 @@ def build_data(config):
     return (lab_dl, unl_dl), valid_dl, cls_num_list, labeled.targets
 
 
-def make_trainer(config, model, device=None):
-    """The trainer ``TRAIN.IS_SSL`` and ``MODEL.TYPE_SEMI`` select."""
+def make_trainer(config, model, device=None, trainer_override=None):
+    """The trainer ``TRAIN.IS_SSL`` and ``MODEL.TYPE_SEMI`` select, or
+    EZBM for ``trainer_override='ezbm'``."""
+    if trainer_override == "ezbm":
+        from endoscopy_tpu_torch.train.ezbm import EZBM
+        return EZBM(model=model, opt_func=config.TRAIN.OPT_NAME,
+                    device=device)
     if not config.TRAIN.IS_SSL:
         from endoscopy_tpu_torch.train.supervised import SupLearning
         return SupLearning(model=model, opt_func=config.TRAIN.OPT_NAME,
@@ -104,7 +110,7 @@ def configure(trainer, config, data) -> None:
     :func:`build_data` returns), as each trainer takes them."""
     train_dl, valid_dl, cls_num_list, labeled_targets = data
     trainer.get_dataloader(train_dl, valid_dl)
-    if config.TRAIN.IS_SSL:
+    if config.TRAIN.IS_SSL and trainer.trainer_name != "EZBM":
         trainer.get_config(config, labeled_targets=labeled_targets)
     else:
         trainer.get_config(config, cls_num_list=cls_num_list,
@@ -112,16 +118,18 @@ def configure(trainer, config, data) -> None:
 
 
 def prepare_trainer(config, model=None, carry_state=None, device=None,
-                    data=None):
+                    data=None, trainer_override=None):
     """One stage up to ``fit``: the data, the trainer, its config, the
     weights (``carry_state``, the previous stage's model state, or else
     ``MODEL.PRE_TRAIN_PATH``) and the resume. ``data`` is what
-    :func:`build_data` returns; by default it is built from the CSVs."""
+    :func:`build_data` returns; by default it is built from the CSVs.
+    ``trainer_override`` is ``--trainer``."""
     if data is None:
         data = build_data(config)
     if model is None:
         model = build_model(config)
-    trainer = make_trainer(config, model, device=device)
+    trainer = make_trainer(config, model, device=device,
+                           trainer_override=trainer_override)
     configure(trainer, config, data)
     from endoscopy_tpu_torch.ckpt.transfer import (apply_pretrain,
                                                    carry_stage_weights)
@@ -134,10 +142,12 @@ def prepare_trainer(config, model=None, carry_state=None, device=None,
     return trainer
 
 
-def run_config(config, model=None, carry_state=None, device=None, data=None):
+def run_config(config, model=None, carry_state=None, device=None, data=None,
+               trainer_override=None):
     """One training stage: :func:`prepare_trainer`, then ``fit``. Returns
     ``(trainer, model)``."""
-    trainer = prepare_trainer(config, model, carry_state, device, data)
+    trainer = prepare_trainer(config, model, carry_state, device, data,
+                              trainer_override)
     trainer.fit()
     return trainer, trainer.state.model
 
@@ -149,14 +159,13 @@ def main(argv=None) -> None:
     parser.add_argument("--config-2", default=None,
                         help="second stage for progressive resizing")
     parser.add_argument("--trainer", default=None, choices=[None, "ezbm"],
-                        help="override trainer dispatch (not ported yet)")
+                        help="override trainer dispatch (EZBM's two "
+                        "stages)")
     parser.add_argument("--preview", default=None, metavar="PATH.png",
                         help="augmentation-view grid (not ported yet)")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.trainer is not None:
-        raise _not_ported("the EZBM trainer (--trainer ezbm)")
     if args.preview is not None:
         raise _not_ported("--preview (eval/visualize.py)")
 
@@ -173,7 +182,8 @@ def main(argv=None) -> None:
         print(f"=== stage {idx} | IMG_SIZE={config.DATA.IMG_SIZE} ===")
         trainer, model = run_config(config, model=model,
                                     carry_state=carry_state,
-                                    device=args.device)
+                                    device=args.device,
+                                    trainer_override=args.trainer)
         carry_state = model.state_dict()
         if preempt.requested():
             print("[preempt] exiting 143 (checkpoint saved; resume with "

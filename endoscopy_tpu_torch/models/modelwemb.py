@@ -6,7 +6,8 @@ logits (``fc``), the pooled backbone features, and a 2-layer projection to
 ``low_dim`` (Dense(3 · low_dim) → LeakyReLU(0.1) → Dense(low_dim) →
 L2-normalize with eps 0, ``head_emb``). Both heads run in float32 with
 autocast off, as the flax ones do. The supervised trainer's triplet
-branch and the CoMatch trainer use it; EZBM is not ported yet.
+branch, the CoMatch trainer and EZBM use it (EZBM's stage 2 through
+:meth:`ModelwEmb.classify_features`).
 """
 
 from __future__ import annotations

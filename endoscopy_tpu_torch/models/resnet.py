@@ -1,9 +1,13 @@
 """ResNet backbone in PyTorch (port of ``endoscopy_tpu/models/resnet.py``).
 
-The plain ResNet-v1 form only (no SE, attention or SASA variants yet). The
+The plain ResNet-v1 form and the SASA variant (``resnet50sasa``: the 3x3
+``conv2`` of the last two stages replaced by ``models/attention.py::
+SASALayer``); SE and the other attention gates are not ported yet. The
 JAX module's conventions are kept so weights carry across unchanged:
 
-- the stage stride sits on the 3x3 ``conv2``;
+- the stage stride sits on the 3x3 ``conv2``; the SASA variant puts it on
+  the 1x1 ``conv1`` of every block, SASA or not (the reference's
+  ResNetSASA), so attention runs at the strided side;
 - a downsample (1x1 conv with the stride, then BN) is built whenever the
   channels or the stride change, ``layer1.0`` included;
 - the stem max-pool pads by 1;
@@ -24,7 +28,7 @@ what ``ckpt/convert.py`` maps the flax tree onto.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -44,10 +48,12 @@ def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-           padding: int = 0, bias: bool = False) -> nn.Conv2d:
-    """A convolution with flax's initial kernel (and zero bias)."""
+           padding: int = 0, bias: bool = False, groups: int = 1
+           ) -> nn.Conv2d:
+    """A convolution with flax's initial kernel (and zero bias); a grouped
+    one's fan-in is its group's, ``k·k·in/groups``, as flax's."""
     conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding,
-                     bias=bias)
+                     bias=bias, groups=groups)
     lecun_normal_(conv.weight)
     if bias:
         nn.init.zeros_(conv.bias)
@@ -112,16 +118,27 @@ def _bn(ch: int) -> BatchNorm2d:
 
 
 class Bottleneck(nn.Module):
-    """1x1 reduce → 3x3 (stride) → 1x1 expand(x4) → +identity → ReLU."""
+    """1x1 reduce → 3x3 (stride) → 1x1 expand(x4) → +identity → ReLU.
+    ``stride_on_conv1`` moves the stride to the 1x1; ``sasa_side`` (the
+    side the block computes at) makes ``conv2`` a SASA layer, which takes
+    the stride on the 1x1 too."""
 
     expansion = 4
 
-    def __init__(self, in_ch: int, filters: int, stride: int = 1):
+    def __init__(self, in_ch: int, filters: int, stride: int = 1,
+                 stride_on_conv1: bool = False,
+                 sasa_side: Optional[int] = None):
         super().__init__()
         out_ch = filters * self.expansion
-        self.conv1 = conv2d(in_ch, filters, 1)
+        first = stride_on_conv1 or sasa_side is not None
+        self.conv1 = conv2d(in_ch, filters, 1, stride=stride if first else 1)
         self.bn1 = _bn(filters)
-        self.conv2 = conv2d(filters, filters, 3, stride=stride, padding=1)
+        if sasa_side is None:
+            self.conv2 = conv2d(filters, filters, 3,
+                                stride=1 if first else stride, padding=1)
+        else:  # named conv2 as the reference's, so .pth keys carry over
+            from endoscopy_tpu_torch.models.attention import SASALayer
+            self.conv2 = SASALayer(filters, side=sasa_side)
         self.bn2 = _bn(filters)
         self.conv3 = conv2d(filters, out_ch, 1)
         self.bn3 = _bn(out_ch)
@@ -142,10 +159,13 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet backbone producing pooled float32 ``(B, C)`` features;
-    ``stage_sizes=(3, 4, 6, 3)`` is ResNet-50."""
+    ``stage_sizes=(3, 4, 6, 3)`` is ResNet-50. ``sasa_stages`` (0-based)
+    get SASA layers sized for ``img_size`` px inputs: their relative
+    encodings' window is ``min(7, side)``, as flax fixes it at init."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 num_filters: int = 64):
+                 num_filters: int = 64, sasa_stages: Sequence[int] = (),
+                 img_size: int = 224):
         super().__init__()
         self.stage_sizes = tuple(int(s) for s in stage_sizes)
         self.conv1 = conv2d(3, num_filters, 7, stride=2, padding=3)
@@ -153,12 +173,18 @@ class ResNet(nn.Module):
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_ch = num_filters
+        side = -(-int(img_size) // 4)  # after the stem's two halvings
         for stage, num_blocks in enumerate(self.stage_sizes):
             filters = num_filters * (2 ** stage)
+            if stage > 0:
+                side = -(-side // 2)
+            sasa_side = side if stage in tuple(sasa_stages) else None
             blocks = []
             for block in range(num_blocks):
                 stride = 2 if (stage > 0 and block == 0) else 1
-                blocks.append(Bottleneck(in_ch, filters, stride))
+                blocks.append(Bottleneck(in_ch, filters, stride,
+                                         stride_on_conv1=bool(sasa_stages),
+                                         sasa_side=sasa_side))
                 in_ch = filters * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_features = in_ch
@@ -177,6 +203,13 @@ class ResNet(nn.Module):
 
 def resnet50() -> ResNet:
     return ResNet(stage_sizes=(3, 4, 6, 3))
+
+
+def resnet50sasa(img_size: int = 224) -> ResNet:
+    """ResNet-50 with SASA in place of the 3x3 convolutions of the last two
+    stages, for ``img_size`` px inputs."""
+    return ResNet(stage_sizes=(3, 4, 6, 3), sasa_stages=(2, 3),
+                  img_size=img_size)
 
 
 def resnet_tiny() -> ResNet:

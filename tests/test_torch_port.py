@@ -16,8 +16,12 @@ the heads, Mixup/CutMix, its steps, ``fit``, the ``evaluate`` and
 ``adjust_hue``, ``comatch_views``, its steps and queue, ``run_config``, the
 transfer into ``ModelwEmb``), ``semiformer`` (the Conformer, its conversion,
 fresh weights and ``.pth`` graft, the SemiFormer trainer's two steps,
-evaluation and ``run_config``, the supervised trainer on the Conformer) and
-``nojax`` (the import and device rules). This one test runs every case and reports every failure
+evaluation and ``run_config``, the supervised trainer on the Conformer),
+``ezbm`` (the EZBM trainer: the stage-2 sampler, both stages' steps,
+``fit``'s stage switch, the Kvasir-Capsule graft, the path H-J presets) and
+``nojax`` (the import and device rules); ``models`` also holds the
+EfficientNet, the SASA ResNet, their ``.pth`` maps and every preset's
+parameter count. This one test runs every case and reports every failure
 with its traceback. It is one test item so that the counts of the JAX
 suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
 within 2, stay the JAX suite's.
@@ -27,11 +31,12 @@ import traceback
 
 import torch
 
-from torch_port_checks import (comatch, learn, models, nojax, randaugment,
-                               semiformer, serve, supervised, train, views)
+from torch_port_checks import (comatch, ezbm, learn, models, nojax,
+                               randaugment, semiformer, serve, supervised,
+                               train, views)
 
 MODULES = (models, randaugment, views, serve, train, learn, supervised,
-           comatch, semiformer, nojax)
+           comatch, semiformer, ezbm, nojax)
 
 
 def _cases():

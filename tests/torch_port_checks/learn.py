@@ -638,8 +638,9 @@ def check_learn_cli_runs_both_stages_like_jax():
     """``python -m endoscopy_tpu_torch.cli.learn --device cpu`` on two
     stages of ``configs/synthetic_smoke.yaml``: exit 0, and the same
     ``epoch_<N>`` directories and meta fields as the JAX CLI (``train_one``
-    stood in); without ``--device`` and a card it raises, and a requested
-    preemption exits 143 after a checkpoint."""
+    stood in); without ``--device`` and a card it raises (with ``--trainer
+    ezbm`` too), a requested preemption exits 143 after a checkpoint, and
+    ``--preview`` points at ROADMAP.md."""
     with tempfile.TemporaryDirectory() as tmp:
         port_cfgs = _write_stage_configs(tmp, "port")
         env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -702,9 +703,15 @@ def check_learn_cli_runs_both_stages_like_jax():
             preempt.reset()
             signal.signal(signal.SIGTERM, handler)
         assert (Path(tmp, "port", "stage1", "epoch_1", "state.pt").is_file())
-        for flag in (["--trainer", "ezbm"], ["--preview", "p.png"]):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                learn.main(["--config-1", port_cfgs[0], *flag])
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            learn.main(["--config-1", port_cfgs[0], "--preview", "p.png"])
+        # --trainer ezbm is ported: it reaches the trainer, which asks for
+        # the device (ezbm.py runs it)
+        with mock.patch.object(torch.cuda, "is_available", lambda: False), \
+                mock.patch.object(learn.preempt, "install", lambda: None), \
+                contextlib.redirect_stdout(io.StringIO()), \
+                pytest.raises(RuntimeError, match="device='cpu'"):
+            learn.main(["--config-1", port_cfgs[0], "--trainer", "ezbm"])
 
 
 def check_export_cli_from_a_checkpoint():

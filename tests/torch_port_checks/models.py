@@ -1,11 +1,21 @@
-"""Port checks: ResNet, heads and the flax → torch weight conversion.
+"""Port checks: ResNet, EfficientNet, SASA, heads and the flax → torch weight conversion.
 
 The flax ``ClassifierHead`` of the JAX package and the port's model get the
 same weights through ``ckpt/convert.py``; their eval logits agree at
 atol 1e-4 in float32 (float32 convolutions on the CPU, summed in a
-different order by XLA and by PyTorch).
+different order by XLA and by PyTorch). The tiny EfficientNet and the tiny
+SASA ResNet (randomized BN scales, statistics and every bias) are held at
+1e-4 of the largest logit in eval and train mode, and their BN running statistics
+after the train forward at 1e-4 relative (``train.py``'s bound: flax's
+one-pass batch variance). The reference ``.pth`` maps (timm 0.5.4's
+EfficientNet names, the reference's SASA ResNet names) land every tensor
+where the JAX package's ``ckpt/torch_import.py`` lands it, exactly. Every
+preset under ``configs/`` builds in the port with the JAX ``build_model``'s
+parameter count (flax's under ``jax.eval_shape``, the port's on the meta
+device: shapes only).
 """
 
+import re
 import tempfile
 from pathlib import Path
 
@@ -15,14 +25,25 @@ import numpy as np
 import pytest
 import torch
 
+from endoscopy_tpu.ckpt.torch_import import import_torch_state as jax_import
 from endoscopy_tpu.config.loader import default_config as jax_default_config
+from endoscopy_tpu.config.loader import get_config as jax_get_config
 from endoscopy_tpu.models import build_model as jax_build_model
+from endoscopy_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
+from endoscopy_tpu.models.heads import ClassifierHead as JaxClassifierHead
+from endoscopy_tpu.models.heads import build_head as jax_build_head
+from endoscopy_tpu.models.resnet import ResNet as JaxResNet
+from endoscopy_tpu_torch.ckpt import transfer
 from endoscopy_tpu_torch.ckpt.convert import from_jax_params, read_npz, write_npz
-from endoscopy_tpu_torch.config.loader import default_config
+from endoscopy_tpu_torch.config.loader import default_config, get_config
 from endoscopy_tpu_torch.models import build_model
+from endoscopy_tpu_torch.models.efficientnet import EfficientNet
+from endoscopy_tpu_torch.models.heads import ClassifierHead, build_head
+from endoscopy_tpu_torch.models.resnet import ResNet
 
 S = 32
 NUM_CLASSES = 4
+ROOT = Path(__file__).resolve().parents[2]
 
 
 def _configs(name="resnet_tiny"):
@@ -107,7 +128,7 @@ def check_npz_roundtrip():
 def check_unported_models_point_to_roadmap():
     """An unported backbone and the margin head raise; CoMatch's model,
     ``ModelwEmb``, is built."""
-    for override in ({"MODEL": {"NAME": "densenet121"}},
+    for override in ({"MODEL": {"NAME": "densenet161"}},
                      {"MODEL": {"MARGIN": "ArcFace"}}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_model(default_config(override))
@@ -131,3 +152,178 @@ def check_resnet_conventions():
     with torch.no_grad():
         fts = bb.eval()(torch.zeros(1, 3, 64, 64))
     assert fts.dtype == torch.float32 and fts.shape == (1, 2048)
+
+
+# -- EfficientNet and the SASA ResNet ------------------------------------------
+
+# a three-stage EfficientNet (a depthwise-separable first stage, then
+# inverted residuals with 3x3 and 5x5 windows)
+TINY_STAGES = ((1, 8, 1, 1, 3), (6, 16, 2, 2, 3), (6, 24, 2, 2, 5))
+TINY_SIDE = 64  # the SASA layers' windows: 4x4 (even: the asymmetric pad), 2x2
+
+
+def _tiny_pair(kind: str, seed: int):
+    """(flax ``ClassifierHead``, its params, randomized batch_stats, the
+    port's model with the same weights) for ``kind`` 'efficientnet' or
+    'sasa'."""
+    from torch_port_checks.train import _module_init
+
+    if kind == "efficientnet":
+        fb = JaxEfficientNet(stages=TINY_STAGES, stem_channels=8,
+                             head_channels=32, dtype=jnp.float32)
+        pb = EfficientNet(stages=TINY_STAGES, stem_channels=8,
+                          head_channels=32)
+    else:
+        fb = JaxResNet(stage_sizes=(1, 1, 1, 1), num_filters=8,
+                       sasa_stages=(2, 3), dtype=jnp.float32)
+        pb = ResNet(stage_sizes=(1, 1, 1, 1), num_filters=8,
+                    sasa_stages=(2, 3), img_size=TINY_SIDE)
+    model = JaxClassifierHead(backbone=fb, head=jax_build_head(NUM_CLASSES))
+    variables = _module_init(model, jax.random.key(seed),
+                             jnp.zeros((1, TINY_SIDE, TINY_SIDE, 3)))
+    rng = np.random.default_rng(seed)
+    params = _to_numpy(variables["params"])
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, a: (rng.uniform(0.5, 1.5, a.shape)
+                         if path[-1].key == "var"
+                         else rng.normal(0, 0.2, a.shape)).astype(np.float32),
+        _to_numpy(variables["batch_stats"]))
+    # every BN scale and every bias (BN, SE, SASA's q/k/v, the head) away
+    # from flax's 1 and 0, so each shows in the outputs
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: ({"scale": rng.uniform(0.5, 1.5, a.shape),
+                          "bias": rng.normal(0, 0.2, a.shape)}.get(
+                              path[-1].key, a)).astype(np.float32), params)
+    port = ClassifierHead(pb, build_head(pb.num_features, NUM_CLASSES))
+    port.load_state_dict(from_jax_params(params, stats), strict=True)
+    return model, params, stats, port
+
+
+def check_tiny_efficientnet_and_sasa_match_flax():
+    """Eval logits, then train-mode logits and every BN's running
+    statistics after one forward, both models at 64 px; the structure
+    (depthwise convolutions, SE biases, BN eps 1e-3; SASA's ``conv2``
+    with biased q/k/v and its encodings)."""
+    x = np.random.default_rng(5).normal(0, 1, (3, TINY_SIDE, TINY_SIDE, 3)
+                                        ).astype(np.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    for kind in ("efficientnet", "sasa"):
+        model, params, stats, port = _tiny_pair(kind, seed=6)
+        v = {"params": params, "batch_stats": stats}
+        want = np.asarray(jax.jit(lambda v, x: model.apply(v, x))(
+            v, jnp.asarray(x)))
+        with torch.no_grad():
+            got = port.eval()(xt).numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max(),
+                                   err_msg=kind)
+        want, mut = jax.jit(lambda v, x: model.apply(
+            v, x, train=True, mutable=["batch_stats"]))(v, jnp.asarray(x))
+        with torch.no_grad():
+            got = port.train()(xt).numpy()
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max(),
+                                   err_msg=f"{kind} train")
+        moved = from_jax_params(params, _to_numpy(mut["batch_stats"]))
+        now = port.state_dict()
+        keys = [k for k in moved if k.endswith(("running_mean",
+                                                 "running_var"))]
+        for k in keys:
+            np.testing.assert_allclose(now[k].numpy(), moved[k].numpy(),
+                                       rtol=1e-4, atol=1e-6, err_msg=k)
+        if kind == "efficientnet":
+            blk = port.backbone.stage2_block1
+            assert blk.dw_conv.groups == blk.dw_conv.in_channels == 48
+            assert blk.se_reduce.bias is not None and blk.residual is False
+            assert port.backbone.stem_bn.eps == pytest.approx(1e-3)
+            assert len(keys) == 2 * 16  # stem, 2 + 6 + 6 in the blocks, head
+        else:
+            sasa = port.backbone.layer3[0].conv2
+            assert (sasa.ks, port.backbone.layer4[0].conv2.ks) == (4, 2)
+            assert sasa.rel_encoding_h.shape == (16, 4, 1)
+            assert port.backbone.layer2[0].conv1.stride == (2, 2)
+            assert port.backbone.layer2[0].conv2.stride == (1, 1)
+
+
+def _timm_key(key: str) -> str:
+    """A port EfficientNet backbone key → timm 0.5.4's name for it."""
+    for port_name, timm_name in (("stem_conv", "conv_stem"),
+                                 ("stem_bn", "bn1"), ("head_conv", "conv_head"),
+                                 ("head_bn", "bn2")):
+        if key.startswith(port_name + "."):
+            return timm_name + key[len(port_name):]
+    s, b, name, leaf = re.fullmatch(r"stage(\d+)_block(\d+)\.(\w+)\.(\w+)",
+                                    key).groups()
+    names = ({"dw_conv": "conv_dw", "dw_bn": "bn1", "project_conv": "conv_pw",
+              "project_bn": "bn2"} if s == "1" else
+             {"expand_conv": "conv_pw", "expand_bn": "bn1",
+              "dw_conv": "conv_dw", "dw_bn": "bn2",
+              "project_conv": "conv_pwl", "project_bn": "bn3"})
+    names.update(se_reduce="se.conv_reduce", se_expand="se.conv_expand")
+    return f"blocks.{int(s) - 1}.{int(b) - 1}.{names[name]}.{leaf}"
+
+
+def check_pth_maps_match_jax():
+    """A timm 0.5.4 EfficientNet state dict and a reference SASA ResNet
+    one (random values, with a classifier head and BN counters), keyed by
+    the reference's names: the port's ``ckpt/transfer.py`` and the JAX
+    package's ``import_torch_state`` import the same tensors to the same
+    places, every trunk tensor, none unmapped, the heads left fresh."""
+    for kind, name, rename in (("efficientnet", "efficientnet_b1", _timm_key),
+                               ("sasa", "resnet50sasa", lambda k: k)):
+        model, params, stats, port = _tiny_pair(kind, seed=7)
+        dst = port.state_dict()
+        g = torch.Generator().manual_seed(8)
+        sd = {}
+        for k, v in dst.items():
+            if k.startswith("backbone."):
+                sd[rename(k[len("backbone."):])] = (
+                    v.clone() if k.endswith("num_batches_tracked") else
+                    torch.rand(v.shape, generator=g) + 0.5)
+        head = "classifier" if kind == "efficientnet" else "fc"
+        sd[f"{head}.weight"] = torch.ones(3, port.backbone.num_features)
+        sd[f"{head}.bias"] = torch.ones(3)
+        new, n, mismatch, unmapped = transfer.import_torch_state(dst, sd, name)
+        jp, jb, report = jax_import(params, stats, {
+            k: v.numpy() for k, v in sd.items()},
+            "efficientnet" if kind == "efficientnet" else "resnet",
+            backbone_scope="backbone", strict=True)
+        want = from_jax_params(_to_numpy(jp), _to_numpy(jb))
+        trunk = [k for k in sd if not k.endswith("num_batches_tracked")
+                 and not k.startswith(head)]
+        assert n == report.imported == len(trunk), (kind, n, report.summary())
+        assert not mismatch and not unmapped and not report.shape_mismatch
+        assert set(new) == set(want)
+        for k, v in want.items():
+            assert torch.equal(new[k], v), (kind, k)
+            if k.startswith("backbone.") and not k.endswith(
+                    "num_batches_tracked"):
+                assert torch.equal(v, sd[rename(k[len("backbone."):])]), k
+            elif not k.startswith("backbone."):
+                assert torch.equal(v, dst[k]), k  # the head stays fresh
+
+
+def check_every_preset_builds_with_jax_parameter_counts():
+    """``build_model`` for every ``configs/*.yaml`` in the port (on the
+    meta device: shapes only) has the JAX ``build_model``'s parameter
+    count at the config's ``IMG_SIZE``; each distinct flax model is traced
+    once."""
+    counts = {}
+    paths = sorted((ROOT / "configs").glob("*.yaml"))
+    assert len(paths) >= 21
+    names = set()
+    for path in paths:
+        with torch.device("meta"):
+            port = build_model(get_config(str(path)))
+        n_port = sum(p.numel() for p in port.parameters())
+        jcfg = jax_get_config(str(path))
+        jmodel, side = jax_build_model(jcfg), int(jcfg.DATA.IMG_SIZE)
+        if (jmodel, side) not in counts:
+            shapes = jax.eval_shape(jmodel.init, jax.random.key(0),
+                                    jnp.zeros((1, side, side, 3)))
+            counts[jmodel, side] = sum(int(np.prod(s.shape)) for s in
+                                       jax.tree.leaves(shapes["params"]))
+        assert n_port == counts[jmodel, side], (path.name, n_port)
+        names.add(jcfg.MODEL.NAME)
+    assert {"efficientnet_b1", "resnet50sasa", "conformer"} <= names

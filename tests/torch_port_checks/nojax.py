@@ -2,7 +2,7 @@
 
 The import check runs in a fresh interpreter, so what the test process
 itself has imported cannot hide a leak. It covers every module of the
-package and ``tests/torch_port_checks/path_{c,d,e,f,g}.py``, which
+package and ``tests/torch_port_checks/path_{c,...,j}.py``, which
 ``chip_smoke.py`` runs on the card's machine: no JAX and nothing of
 ``endoscopy_tpu``, and none of what that machine lacks (pandas, cv2, PIL,
 PyYAML) at import time. ``chip_smoke.py`` itself is read, not run: no
@@ -30,6 +30,7 @@ from endoscopy_tpu_torch.config.loader import default_config
 from endoscopy_tpu_torch.serve import export, server
 from endoscopy_tpu_torch.train.comatch import CoMatch
 from endoscopy_tpu_torch.train.common import BaseTrainer
+from endoscopy_tpu_torch.train.ezbm import EZBM
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
 from endoscopy_tpu_torch.train.semiformer import SemiFormer
 from endoscopy_tpu_torch.train.supervised import SupLearning
@@ -53,9 +54,7 @@ NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "endoscopy_tpu",
 
 
 def check_package_imports_no_jax():
-    mods = _modules() + ["torch_port_checks.path_c", "torch_port_checks.path_d",
-                         "torch_port_checks.path_e", "torch_port_checks.path_f",
-                         "torch_port_checks.path_g"]
+    mods = _modules() + [f"torch_port_checks.path_{p}" for p in "cdefghij"]
     assert {"endoscopy_tpu_torch.ops.randaugment_kernel",
             "endoscopy_tpu_torch.cli.learn",
             "endoscopy_tpu_torch.ckpt.io",
@@ -70,7 +69,10 @@ def check_package_imports_no_jax():
             "endoscopy_tpu_torch.ssl_state.comatch_state",
             "endoscopy_tpu_torch.train.comatch",
             "endoscopy_tpu_torch.models.conformer",
-            "endoscopy_tpu_torch.train.semiformer"} <= set(mods)
+            "endoscopy_tpu_torch.train.semiformer",
+            "endoscopy_tpu_torch.train.ezbm",
+            "endoscopy_tpu_torch.models.efficientnet",
+            "endoscopy_tpu_torch.models.attention"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -109,7 +111,7 @@ def check_entry_points_need_cuda_unless_cpu_is_asked():
         for entry in ("resolve_device", "eval_view", "fixmatch_views",
                       "comatch_views", "labeled_train_view", "make_infer_fn",
                       "load_exported", "make_server", "FixMatch", "CoMatch",
-                      "SemiFormer", "BaseTrainer", "SupLearning",
+                      "SemiFormer", "BaseTrainer", "SupLearning", "EZBM",
                       "prepare_trainer", "restore_checkpoint"):
             _entry_needs_cuda(Path(tmp), entry)
         _clis_need_cuda(Path(tmp))
@@ -162,6 +164,7 @@ def _entry_needs_cuda(tmp_path, entry):
         "CoMatch": lambda **kw: CoMatch(model, "Adam", **kw),
         "SemiFormer": lambda **kw: SemiFormer(model, "Adam", **kw),
         "SupLearning": lambda **kw: SupLearning(model, "Adam", **kw),
+        "EZBM": lambda **kw: EZBM(model, "Adam", **kw),
         "BaseTrainer": lambda **kw: BaseTrainer(model, "Adam", **kw),
         # what cli/learn.py's run_config runs before fit, and --device
         "prepare_trainer": lambda **kw: learn.prepare_trainer(
