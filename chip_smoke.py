@@ -40,7 +40,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    against the unquantized artifact's (atol 0.03, the same argmax on every
    row) and two rows against its float32 CPU forward (atol 0.05), a
    bucket-32 call's time, and ``cli/infer.py::predict`` over the 64 images
-   with and without ``--thres`` equal to direct calls of the artifact;
+   with and without ``--thres`` equal to direct calls of the artifact.
+   Path A3: artifacts of models built for their side and of the
+   Conformer: ``kaggle_semisupervised_real_5``'s SASA ResNet-50 exported
+   at 112 px loads on the card (its encodings sized for 112) and serves
+   64 images within atol 0.02 of a direct bf16 eval forward; a
+   Conformer-Ti artifact (``kaggle_supervised_paper``'s fields, 23
+   classes, its ``MODEL`` fields in the artifact) serves
+   ``softmax(conv head)`` of a direct bf16 eval forward within 0.02, the
+   same argmax on every row;
 6. path C: the FixMatch trainer (``endoscopy_tpu_torch/train/fixmatch.py``)
    on ``configs/kaggle_semisupervised_real_3_1.yaml``'s fields (ResNet-50,
    112 px, B=32, MU=7, bf16, Adam, EMA; seeded random weights and seeded
@@ -223,6 +231,33 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    memory, one kernel launch a step, crop-fused with ``pad=14`` on
    (192, 112, 112, 3) bf16, against its plain version on the step's own
    input (0.0), its ms beside its bytes bound.
+14. path K: FixMatch on DenseNet-161 (``endoscopy_tpu_torch/models/
+   densenet.py``; ``tests/torch_port_checks/path_k.py``) at
+   ``kaggle_semisupervised_real_3_1``'s fields with ``MODEL.NAME:
+   densenet161`` (112 px, B=32, MU=7: 480 images a step, Adam, step
+   schedule, EMA). K1: path C part 1 for three seeds, the channels each
+   dense block grew at BN scale 0.1 wherever they are read
+   (``path_k.GROWN_SCALE``). K2: ``train_one`` at full
+   width, 3 warm-up and 12 timed steps: step ms, images/s, the FLOP share,
+   peak memory, one kernel launch a step, crop-fused with ``pad=14`` on
+   (224, 112, 112, 3) bf16, against its plain version on the step's own
+   input (0.0), its ms beside its bytes bound.
+15. path L: Swin-T (``endoscopy_tpu_torch/models/swin.py``;
+   ``tests/torch_port_checks/path_l.py``) in the supervised trainer at
+   ``kaggle_supervised_patho``'s fields with ``MODEL.NAME:
+   swin_tiny_patch4_window7_224`` (224 px, B=32, Adam, cosine, EMA). L1:
+   path E3's method at 224 px (Swin's stage sides must be even: 112 px
+   fails in both packages), B=2, seeds 0-2. L2: 3 warm-up and 8 timed
+   steps: step ms, images/s, the FLOP share (the window attention's two
+   products counted), peak memory. No kernel runs on it.
+16. path M: every other registry name this slice ports
+   (``path_l.M_NAMES``: the SE, grouped and gated ResNets, DenseNet-121,
+   Swin-S, SwinMLP, CoAtNet-0, ViT-LSA) at ``kaggle_supervised_patho``'s
+   width: built on the card, a float32 eval forward of 2 images within
+   1e-4 of the largest logit of the CPU's, one warm-up and two timed bf16
+   supervised steps (32 images at 224 px) with a finite loss, and the
+   artifact through ``load_exported`` equal to a direct eval forward; a
+   line a model with its step ms and peak memory. No kernel runs on it.
 
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line and ``{"ok": true, "device": {...}}``.
@@ -243,7 +278,8 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_port_checks import (path_c, path_d, path_e, path_f,  # noqa: E402
-                               path_g, path_h, path_i, path_j)
+                               path_g, path_h, path_i, path_j, path_k,
+                               path_l)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 
@@ -296,6 +332,12 @@ I1_TOL_BF16_UPDATE = 0.5
 # step read 6.2e-3..3.0e-2 from float64 and bf16-rounded views moved it
 # 1.2-1.5; at 0.1, 7.8e-4..3.1e-3 and 0.18 (seeds 0-1)
 J1_Q_SCALE = 0.1
+# path M, for each name: a float32 eval forward of M_IMAGES images on the
+# card against the CPU's (relative to the largest logit: float32 in
+# another summation order, no TF32), then M_WARMUP_STEPS + M_TIMED_STEPS
+# bf16 supervised steps
+M_IMAGES, M_EVAL_TOL = 2, 1e-4
+M_WARMUP_STEPS, M_TIMED_STEPS = 1, 2
 
 
 # 64 concurrent raw requests from one client process: argv = port, .npy
@@ -743,7 +785,8 @@ def train_step_matches_cpu(seed: int, base=path_c.REAL_3_1,
     """Path C, part 1, for one seed: one step of ``base``'s model (real_3_1's
     ResNet-50) at 112 px, B=4, MU=1, from one seeded state (``condition``
     applied to the model) and the same draws, on the card against the
-    CPU's float32 step."""
+    CPU's float32 step. All three card steps run before any of them is
+    judged."""
     small = {"DATA": {"BATCH_SIZE": 4, "MU": 1}, "TRAIN": {"DTYPE": "float32"}}
     config = path_c.train_config(base, **small)
     model = path_c.seeded_model(config, seed, path_c.HEAD_STD,
@@ -795,6 +838,7 @@ def train_step_matches_cpu(seed: int, base=path_c.REAL_3_1,
     # float32 step's own distance from float64, and 1e-3
     bounds = {"float32": (TRAIN_TOL_F32_LOSS, 3 * cpu_l2 + 1e-3),
               "bfloat16": (TRAIN_TOL_BF16_LOSS, TRAIN_TOL_BF16_UPDATE)}
+    failures = []
     for dtype, alter in (("float32", None), ("bfloat16", None),
                          ("bfloat16", _weak_as_strong)):
         config.TRAIN.DTYPE = dtype
@@ -812,16 +856,18 @@ def train_step_matches_cpu(seed: int, base=path_c.REAL_3_1,
         sound = same_mask and rel <= loss_bound and l2 <= bound
         if alter is not None:
             if sound:
-                fail(f"{label}: the bf16 check passes a step without the "
-                     "strong view")
+                failures.append("the bf16 check passes a step without the "
+                                "strong view")
             out["bfloat16_control"] = {"loss_rel_err": rel, "update_l2_err": l2}
             continue
         if not sound:
-            fail(f"{label}: the {dtype} step on the card differs from the "
-                 "CPU's")
+            failures.append(f"the {dtype} step on the card differs from the "
+                            "CPU's")
         out[dtype] = {"loss_rel_err": rel, "update_l2_err": l2,
                       "update_worst_tensor_err": worst,
                       "update_l2_err_vs_f64": l2_64}
+    if failures:
+        fail(f"{label}: " + "; ".join(failures))
     return out
 
 
@@ -831,29 +877,54 @@ def phase_train_correctness(seed: int):
             for s in range(seed, seed + PART1_SEEDS)}
 
 
+def _attention_macs():
+    """Multiply-adds of the attention layers' batched products, by layer
+    type, from the layer and its input: ``q·kᵀ`` and ``attn·v`` (each
+    ``heads · n² · head_dim`` a sample), SASA's ``q·k`` and ``weights·v``
+    over each pixel's ``ks²`` window, SwinMLP's per-head ``n x n`` mixing
+    of each window."""
+    from endoscopy_tpu_torch.models.attention import SASALayer
+    from endoscopy_tpu_torch.models.coatnet import RelAttention
+    from endoscopy_tpu_torch.models.conformer import Attention
+    from endoscopy_tpu_torch.models.swin import WindowAttention
+    from endoscopy_tpu_torch.models.swin_mlp import SpatialMLP
+    from endoscopy_tpu_torch.models.vit_lsa import LSA
+
+    def products(inner):
+        def macs(m, x):
+            b, n, c = x.shape
+            return 2 * b * n * n * inner(m, c)
+        return macs
+
+    return {
+        SASALayer: lambda m, x: 2 * x.numel() * m.ks ** 2,
+        Attention: products(lambda m, c: c),
+        WindowAttention: products(lambda m, c: c),
+        RelAttention: products(lambda m, c: m.heads * m.dim_head),
+        LSA: products(lambda m, c: m.heads * m.dim_head),
+        SpatialMLP: lambda m, x: x.shape[0] * x.shape[1] ** 2 * x.shape[2],
+    }
+
+
 def train_flops_per_image(model, img: int) -> int:
     """Model FLOPs of one training step per image from the convolution,
     linear and attention shapes: the forward, every layer's weight
     gradient and every layer's input gradient but the stem's (the first
     convolution: its input needs none); 2 FLOPs per multiply-add. A linear
     layer counts once per row it sees (one per image in a ResNet's head,
-    one per token in a ViT block); the Conformer's attention adds its two
-    batched products, ``q·kᵀ`` and ``attn·v`` (each ``heads · n² ·
-    head_dim`` multiply-adds; their gradients, two products each, make the
-    factor 3 hold for them too). A grouped (depthwise) convolution counts
-    its group's inputs, and the squeeze-excite branch its two 1x1
-    convolutions on the pooled pixel; SASA adds its two products,
-    ``q·k`` and ``weights·v`` over each pixel's ``ks²`` window (each ``C ·
-    ks²`` multiply-adds a pixel). BN, LN, activations, softmax, pooling
-    and the loss are not counted."""
+    one per token in a transformer block); the attention layers add their
+    batched products (``_attention_macs``: the Conformer's, Swin's window
+    attention, CoAtNet's, ViT-LSA's, SASA's; their gradients, two products
+    each, make the factor 3 hold for them too). A grouped (depthwise)
+    convolution counts its group's inputs, and the squeeze-excite branch
+    its two 1x1 convolutions on the pooled pixel. BN, LN, activations,
+    softmax, pooling and the loss are not counted."""
     import copy
 
     import torch
     from torch import nn
 
-    from endoscopy_tpu_torch.models.attention import SASALayer
-    from endoscopy_tpu_torch.models.conformer import Attention
-
+    attention = _attention_macs()
     macs = {}
 
     def count(name):
@@ -863,16 +934,13 @@ def train_flops_per_image(model, img: int) -> int:
                 macs[name] = out.numel() * per
             elif isinstance(m, nn.Linear):
                 macs[name] = out.numel() * m.in_features
-            elif isinstance(m, SASALayer):  # q·k and weights·v, ks² a pixel
-                macs[name + ".products"] = 2 * inp[0].numel() * m.ks ** 2
-            else:  # Attention: q·kᵀ and attn·v over (b, heads, n, head_dim)
-                b, n, c = inp[0].shape
-                macs[name + ".products"] = 2 * b * n * n * c
+            else:
+                macs[name + ".products"] = attention[type(m)](m, inp[0])
         return hook
 
     probe = copy.deepcopy(model).cpu().float().eval()
     for name, m in probe.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear, Attention, SASALayer)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, *attention)):
             m.register_forward_hook(count(name))
     with torch.no_grad():
         probe(torch.zeros(1, 3, img, img))
@@ -2942,10 +3010,11 @@ def effnet_step_matches_cpu(seed: int):
     return out
 
 
-def supervised_timed(cfg, seed: int, steps: int, label: str):
-    """The supervised trainer on ``cfg`` from flax's initializer under
-    ``torch.manual_seed(seed)``, on ``path_e``'s seeded canonical rows:
-    ``TRIPLET_WARMUP_STEPS`` warm-up steps, then ``steps`` marked ones.
+def supervised_timed(cfg, seed: int, steps: int, label: str,
+                     warmup: int = TRIPLET_WARMUP_STEPS, model=None):
+    """The supervised trainer on ``cfg``'s model (or ``model``) from flax's
+    initializer under ``torch.manual_seed(seed)``, on ``path_e``'s seeded
+    canonical rows: ``warmup`` warm-up steps, then ``steps`` marked ones.
     Returns the readings."""
     import torch
 
@@ -2953,13 +3022,15 @@ def supervised_timed(cfg, seed: int, steps: int, label: str):
     from endoscopy_tpu_torch.train.supervised import SupLearning
 
     torch.manual_seed(seed)
-    trainer = SupLearning(build_model(cfg), cfg.TRAIN.OPT_NAME, device="cuda")
+    if model is None:
+        model = build_model(cfg)
+    trainer = SupLearning(model, cfg.TRAIN.OPT_NAME, device="cuda")
     trainer.get_dataloader(path_e._Rows(cfg, seed), None)
     k = int(cfg.MODEL.NUM_CLASSES)
     trainer.get_config(cfg, cls_num_list=[1] * k,
                        labeled_targets=path_c.labeled_targets(cfg, seed))
     images = trainer._images_per_step()
-    trainer.n_iter_per_epoch = TRIPLET_WARMUP_STEPS
+    trainer.n_iter_per_epoch = warmup
     t0 = time.perf_counter()
     trainer.train_one(1)
     torch.cuda.synchronize()
@@ -2973,7 +3044,7 @@ def supervised_timed(cfg, seed: int, steps: int, label: str):
     share = flops / (med * 1e-3) / H100_BF16_FLOPS
     print(f"{label}: {steps} steps of {images} images ({cfg.MODEL.NAME}, "
           f"{trainer.img_size} px, {trainer.dtype}, {type(trainer.state.model).__name__}"
-          f") after {TRIPLET_WARMUP_STEPS} warm-up steps ({warm_s:.2f} s): "
+          f") after {warmup} warm-up steps ({warm_s:.2f} s): "
           f"step ms (CUDA events) median {med:.3f}, min {step_ms.min():.3f}, "
           f"max {step_ms.max():.3f}; {images * steps / wall_s:.1f} images/s; "
           f"mean loss {meter.avg:.4f}; model FLOPs per step {flops} "
@@ -3022,9 +3093,11 @@ def _calm_sasa(model) -> None:
                 m.q_conv.weight.mul_(J1_Q_SCALE)
 
 
-def real5_full(seed: int):
-    """Path J2: ``train_one`` at real_5's full width (the SASA ResNet-50,
-    416 images a step at 112 px), and the kernel on the step's own input."""
+def fixmatch_full(base: dict, path: str, seed: int):
+    """``train_one`` at ``base``'s full width (paths J2, K2), 3 warm-up and
+    12 timed steps, and the kernel on the step's own input: one launch a
+    step, crop-fused with ``pad`` = side / 8 on ``(B·MU, side, side, 3)``,
+    0.0 from its plain version."""
     from unittest import mock
 
     import torch
@@ -3034,7 +3107,7 @@ def real5_full(seed: int):
     from endoscopy_tpu_torch.ops import randaugment_kernel as rk
     from endoscopy_tpu_torch.train.fixmatch import FixMatch
 
-    config = path_c.train_config(path_j.REAL_5)
+    config = path_c.train_config(base)
     img = int(config.DATA.IMG_SIZE)
     b, bu = int(config.DATA.BATCH_SIZE), int(config.DATA.BATCH_SIZE) * int(config.DATA.MU)
     images = b + 2 * bu
@@ -3043,7 +3116,7 @@ def real5_full(seed: int):
     trainer = FixMatch(model, config.TRAIN.OPT_NAME, device="cuda")
     trainer.get_config(config, labeled_targets=path_c.labeled_targets(config, seed))
     step_ms, med, wall_s, warm_s, peak, launches, loss = timed_train_one(
-        trainer, config, seed, "J2")
+        trainer, config, seed, path)
     steps = TRAIN_TIMED_STEPS
     share = flops / (med * 1e-3) / H100_BF16_FLOPS
 
@@ -3069,17 +3142,17 @@ def real5_full(seed: int):
                        iters=2, warmup=1)
     bytes_moved = 2 * xk.numel() * xk.element_size() + pi.numel() * 4 + pf.numel() * 4
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    print(f"path J2: {steps} steps of {images} images ({config.MODEL.NAME}, B={b}, "
-          f"B*MU={bu}, {img} px, bf16, SGD) after {TRAIN_WARMUP_STEPS} "
-          f"warm-up steps ({warm_s:.2f} s); step ms (CUDA events between "
-          f"steps) median {med:.3f}, min {step_ms.min():.3f}, max "
+    print(f"path {path}: {steps} steps of {images} images ({config.MODEL.NAME}, B={b}, "
+          f"B*MU={bu}, {img} px, bf16, {config.TRAIN.OPT_NAME}) after "
+          f"{TRAIN_WARMUP_STEPS} warm-up steps ({warm_s:.2f} s); step ms (CUDA "
+          f"events between steps) median {med:.3f}, min {step_ms.min():.3f}, max "
           f"{step_ms.max():.3f}, all {np.round(step_ms, 3).tolist()}; wall "
           f"{wall_s:.3f} s, {images * steps / wall_s:.1f} images/s; mean "
           f"loss {loss:.4f}; randaugment_mc launches {launches}; peak memory "
           f"{peak} B; model FLOPs per step {flops} ({flops / images:.4e} per "
-          f"image: convolutions, the head, SASA's two products; forward + "
+          f"image: convolutions, the head, the attention products; forward + "
           f"both gradients), {share:.4f} of the dense bf16 peak", flush=True)
-    print(f"path J2: randaugment_mc crop-fused (crop {kw.get('crop_size')}, "
+    print(f"path {path}: randaugment_mc crop-fused (crop {kw.get('crop_size')}, "
           f"pad {kw.get('pad')}) on the step's strong-view input "
           f"{tuple(xk.shape)} {xk.dtype}: kernel vs plain version "
           f"max_abs_err={err} (tol 0.0); kernel {kern_ms:.4f} ms, plain "
@@ -3087,7 +3160,7 @@ def real5_full(seed: int):
           f"{HBM_BYTES_PER_S:.3g} B/s)", flush=True)
     if err != 0.0 or kw.get("pad") != int(img * 0.125) or tuple(
             xk.shape) != (bu, img, img, 3):
-        fail(f"path J2: the kernel differs from the plain version ({err}) "
+        fail(f"path {path}: the kernel differs from the plain version ({err}) "
              f"or ran at another shape or without the fused pad ({kw})")
     return {"step_ms_median": med, "step_ms_min": float(step_ms.min()),
             "step_ms_max": float(step_ms.max()),
@@ -3096,7 +3169,7 @@ def real5_full(seed: int):
             "launches_per_step": launches / steps, "kernel_ms": kern_ms,
             "kernel_max_abs_err": err, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bytes": bytes_moved,
-            "shape": list(xk.shape)}
+            "shape": list(xk.shape), "pad": kw.get("pad")}
 
 
 def phase_real5(seed: int):
@@ -3104,7 +3177,198 @@ def phase_real5(seed: int):
     out = {"j1": {s: train_step_matches_cpu(
         s, path_j.REAL_5, "path J1", _calm_sasa)
         for s in range(seed, seed + PART1_SEEDS)}}
-    out["j2"] = real5_full(seed)
+    out["j2"] = fixmatch_full(path_j.REAL_5, "J2", seed)
+    return out
+
+
+def _calm_densenet(model) -> None:
+    """Path K1's conditioning: in every BN that reads a dense block's
+    concatenation, the channels the block grew at ``path_k.GROWN_SCALE``."""
+    import torch
+
+    from endoscopy_tpu_torch.models.densenet import DenseLayer
+
+    bb = model.backbone
+    grown_from = None
+    with torch.no_grad():
+        for name in bb.names + ["norm_final"]:
+            m = getattr(bb, name)
+            norm = (m.norm1 if isinstance(m, DenseLayer)
+                    else getattr(m, "norm", m))
+            if name.endswith("_layer1"):  # the block's input channels
+                grown_from = norm.num_features
+            norm.weight[grown_from:] = path_k.GROWN_SCALE
+
+
+def phase_densenet(seed: int):
+    """Path K: FixMatch on DenseNet-161 at real_3_1's fields, K1-K2."""
+    out = {"k1": {s: train_step_matches_cpu(
+        s, path_k.REAL_3_1_DENSENET, "path K1", _calm_densenet)
+        for s in range(seed, seed + PART1_SEEDS)}}
+    out["k2"] = fixmatch_full(path_k.REAL_3_1_DENSENET, "K2", seed)
+    return out
+
+
+def swin_step_matches_cpu(seed: int):
+    """Path L1 for one seed: Swin-T's supervised SGD step at 224 px, B=2,
+    by path E3's method."""
+    cfg = path_e.step_config(path_l.PATHO_SWIN, False, batch=2,
+                             img=path_l.PATHO_SWIN["DATA"]["IMG_SIZE"])
+    model = path_c.seeded_model(cfg, seed, path_c.HEAD_STD)
+    x, t = path_e.step_batch(cfg, seed)
+    return cross_device_step(
+        f"path L1, seed {seed}", cfg, (x, t), seed,
+        lambda dev, view: path_e.step_once(cfg, model, view, t, dev, seed),
+        lambda view: path_e.step_float64(cfg, model, view, t, seed))[0]
+
+
+def phase_swin(seed: int):
+    """Path L: Swin-T in the supervised trainer, L1-L2; no kernel runs on
+    it."""
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    rk.randaugment_mc.launches = 0
+    out = {"l1": {s: swin_step_matches_cpu(s)
+                  for s in range(seed, seed + PART1_SEEDS)}}
+    cfg = path_c.train_config(path_l.PATHO_SWIN, TRAIN={"SAVE_CP": "",
+                                                        "LOG_DIR": ""})
+    out["l2"] = supervised_timed(cfg, seed, TRIPLET_TIMED_STEPS,
+                                 "path L2, kaggle_supervised_patho on Swin-T")
+    out["launches"] = rk.randaugment_mc.launches
+    print(f"path L: randaugment_mc launches {out['launches']} (no kernel on "
+          "this path)", flush=True)
+    if out["launches"]:
+        fail("path L launched the RandAugment kernel")
+    return out
+
+
+def zoo_model(name: str, seed: int, out_dir: Path):
+    """Path M for one registry name at kaggle_supervised_patho's width:
+    built on the card, a float32 eval forward against the CPU's, a bf16
+    supervised step, the artifact's round trip."""
+    import copy
+    import os
+
+    import torch
+
+    from endoscopy_tpu_torch.aug.views import eval_view
+    from endoscopy_tpu_torch.models import build_model
+    from endoscopy_tpu_torch.serve.export import (export_model, load_exported,
+                                                  make_infer_fn)
+
+    cfg = path_c.train_config(path_l.PATHO_SWIN, MODEL={"NAME": name},
+                              TRAIN={"SAVE_CP": "", "LOG_DIR": ""})
+    img = int(cfg.DATA.IMG_SIZE)
+    torch.manual_seed(seed)
+    model = build_model(cfg)
+    imgs = np.random.default_rng(seed).integers(
+        0, 256, (M_IMAGES, int(img * 1.2), int(img * 1.2), 3), dtype=np.uint8)
+    x = eval_view(imgs, img, torch.float32, device="cpu").permute(0, 3, 1, 2)
+    with torch.no_grad():
+        want = copy.deepcopy(model).eval()(x)
+        got = copy.deepcopy(model).cuda().eval()(x.cuda()).cpu()
+    eval_err = float((got - want).abs().max() / want.abs().max())
+    step = supervised_timed(cfg, seed, M_TIMED_STEPS, f"path M, {name}",
+                            warmup=M_WARMUP_STEPS, model=model)
+    path = str(out_dir / f"{name}.pt")
+    export_model(cfg, model.state_dict(), path)
+    size = os.path.getsize(path)
+    served = load_exported(path, device="cuda")(imgs)
+    direct = make_infer_fn(model, img, "bfloat16", device="cuda")(imgs)
+    os.remove(path)
+    art_err = float(np.abs(served - direct).max())
+    print(f"path M, {name}: float32 eval forward on the card vs the CPU, "
+          f"{M_IMAGES} images at {img} px: {eval_err:.3e} of the largest "
+          f"logit (bound {M_EVAL_TOL}); the bf16 step {step['step_ms_median']:.3f} "
+          f"ms, peak memory {step['peak_bytes']} B, loss {step['loss']:.4f}; "
+          f"its {size} B artifact through load_exported vs a direct eval "
+          f"forward: max_abs_err={art_err} (equal expected)", flush=True)
+    if not eval_err <= M_EVAL_TOL:
+        fail(f"path M, {name}: the float32 forward differs on the card")
+    if art_err != 0.0 or not np.isfinite(served).all():
+        fail(f"path M, {name}: the artifact serves other probabilities")
+    return {"eval_rel_err": eval_err, "artifact_max_abs_err": art_err,
+            "artifact_bytes": size, **step}
+
+
+def phase_zoo(seed: int, out_dir: Path):
+    """Path M: every other new registry name; no kernel runs on it."""
+    import torch
+
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rk.randaugment_mc.launches = 0
+    out = {}
+    for name in path_l.M_NAMES:
+        out[name] = zoo_model(name, seed, out_dir)
+        torch.cuda.empty_cache()
+    out["launches"] = rk.randaugment_mc.launches
+    print(f"path M: randaugment_mc launches {out['launches']} (no kernel on "
+          "this path)", flush=True)
+    if out["launches"]:
+        fail("path M launched the RandAugment kernel")
+    return out
+
+
+def phase_serve_sized(seed: int, out_dir: Path):
+    """Path A3: real_5's SASA ResNet-50 artifact at 112 px, and a
+    Conformer-Ti artifact (kaggle_supervised_paper's fields) serving its
+    conv head, both on the card."""
+    import torch
+
+    from endoscopy_tpu_torch.aug.views import eval_view
+    from endoscopy_tpu_torch.device import resolve_dtype
+    from endoscopy_tpu_torch.models import build_model
+    from endoscopy_tpu_torch.serve.export import (export_model, load_exported,
+                                                  make_infer_fn)
+
+    out = {}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg = path_c.train_config(path_j.REAL_5)
+    img = int(cfg.DATA.IMG_SIZE)
+    model = path_c.seeded_model(cfg, seed, path_c.HEAD_STD)
+    path = str(out_dir / "real5_sasa.pt")
+    size, n_classes = export_model(cfg, model.state_dict(), path)
+    imgs = np.random.default_rng(seed).integers(
+        0, 256, (N_REQUESTS, size, size, 3), dtype=np.uint8)
+    served = load_exported(path, device="cuda")(imgs)
+    direct = make_infer_fn(model, img, "bfloat16", device="cuda")(imgs)
+    err = float(np.abs(served - direct).max())
+    print(f"path A3: real_5's SASA ResNet-50 exported at {img} px "
+          f"(canonical {size}) and loaded on the card: {N_REQUESTS} images, "
+          f"served vs a direct bf16 eval forward max_abs_err={err} (atol "
+          f"{SERVE_ATOL})", flush=True)
+    if served.shape != (N_REQUESTS, n_classes) or not err <= SERVE_ATOL:
+        fail("path A3: the SASA artifact serves other probabilities")
+    out["real_5_max_abs_err"] = err
+
+    cfg = path_c.train_config(path_g.SUP_PAPER)
+    img = int(cfg.DATA.IMG_SIZE)
+    torch.manual_seed(seed)
+    model = build_model(cfg)
+    path = str(out_dir / "conformer_ti.pt")
+    size, n_classes = export_model(cfg, model.state_dict(), path)
+    imgs = np.random.default_rng(seed + 1).integers(
+        0, 256, (32, size, size, 3), dtype=np.uint8)
+    served = load_exported(path, device="cuda")(imgs)
+    model = model.cuda().eval().to(memory_format=torch.channels_last)
+    dev = next(model.parameters()).device
+    cdtype = resolve_dtype(dev, "bfloat16")  # float32 on a CPU rehearsal
+    with torch.inference_mode(), torch.autocast(
+            dev.type, torch.bfloat16, enabled=cdtype == torch.bfloat16):
+        x = eval_view(imgs, img, cdtype, device=dev)
+        conv, _ = model(x.permute(0, 3, 1, 2))
+    direct = torch.softmax(conv.float(), -1).cpu().numpy()
+    err = float(np.abs(served - direct).max())
+    flips = int((served.argmax(1) != direct.argmax(1)).sum())
+    print(f"path A3: Conformer-Ti (kaggle_supervised_paper, {n_classes} "
+          f"classes, {img} px) served: 32 images, vs softmax(conv head) of a "
+          f"direct bf16 eval forward max_abs_err={err} (atol {SERVE_ATOL}), "
+          f"argmax differs on {flips} rows", flush=True)
+    if not err <= SERVE_ATOL or flips or served.shape != (32, n_classes):
+        fail("path A3: the Conformer artifact does not serve its conv head")
+    out["conformer_max_abs_err"] = err
     return out
 
 
@@ -3145,53 +3409,51 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     max_err = phase_compare(gen, IMG)
     max_err_c = phase_compare(gen, IMG_C)
-    row = phase_views(gen, args.seed)
-    serve_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
-    phase_serve(args.seed, serve_dir)
-    int8_row = phase_serve_int8(args.seed, serve_dir)
-    print("path A2: " + json.dumps(int8_row), flush=True)
-    t0 = time.perf_counter()
-    correct = phase_train_correctness(args.seed)
-    train = phase_train_full(args.seed)
-    phase_train_accum(args.seed)
-    phase_train_freeze(args.seed)
-    print(f"path C took {time.perf_counter() - t0:.1f} s", flush=True)
-    print("path C: " + json.dumps({"correctness": correct, "full": train}),
-          flush=True)
-    t0 = time.perf_counter()
     scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
-    data2, learn_row = phase_learn(args.seed, scratch / "path_d")
+    rows = {}
+
+    def run(path, phase, *a):
+        t = time.perf_counter()
+        rows[path] = phase(*a)
+        print(f"path {path} took {time.perf_counter() - t:.1f} s", flush=True)
+        print(f"path {path}: " + json.dumps(rows[path]), flush=True)
+        return rows[path]
+
+    row = run("B", phase_views, gen, args.seed)
+    run("A", lambda: {"a": phase_serve(args.seed, scratch),
+                      "a2": phase_serve_int8(args.seed, scratch)})
+    run("A3", phase_serve_sized, args.seed, scratch / "path_a3")
+    run("C", lambda: {"correctness": phase_train_correctness(args.seed),
+                      "full": phase_train_full(args.seed),
+                      "accum": phase_train_accum(args.seed),
+                      "freeze": phase_train_freeze(args.seed)})
+    t0 = time.perf_counter()  # D's images feed E, G and H
+    data2, rows["D"] = phase_learn(args.seed, scratch / "path_d")
     print(f"path D took {time.perf_counter() - t0:.1f} s", flush=True)
-    print("path D: " + json.dumps(learn_row), flush=True)
-    t0 = time.perf_counter()
-    sup_row = phase_supervised(args.seed, scratch / "path_e", data2)
-    print(f"path E took {time.perf_counter() - t0:.1f} s", flush=True)
-    print("path E: " + json.dumps(sup_row), flush=True)
-    t0 = time.perf_counter()
-    cm_row = phase_comatch(args.seed, scratch / "path_f")
-    print(f"path F took {time.perf_counter() - t0:.1f} s", flush=True)
-    print("path F: " + json.dumps(cm_row), flush=True)
-    f2, f3 = cm_row["f2"], cm_row["f3"]
-    t0 = time.perf_counter()
-    sf_row = phase_semiformer(args.seed, scratch / "path_g", data2)
-    print(f"path G took {time.perf_counter() - t0:.1f} s", flush=True)
-    print("path G: " + json.dumps(sf_row), flush=True)
-    g2, g3 = sf_row["g2"], sf_row["g3"]
-    t0 = time.perf_counter()
-    ezbm_row = phase_ezbm(args.seed, scratch / "path_h", data2,
-                          sup_row["e1_checkpoint"])
+    print("path D: " + json.dumps(rows["D"]), flush=True)
+    run("E", phase_supervised, args.seed, scratch / "path_e", data2)
+    run("F", phase_comatch, args.seed, scratch / "path_f")
+    run("G", phase_semiformer, args.seed, scratch / "path_g", data2)
+    run("H", phase_ezbm, args.seed, scratch / "path_h", data2,
+        rows["E"]["e1_checkpoint"])
     shutil.rmtree(scratch / "path_e", ignore_errors=True)
-    print(f"path H took {time.perf_counter() - t0:.1f} s", flush=True)
-    print("path H: " + json.dumps(ezbm_row), flush=True)
-    t0 = time.perf_counter()
-    effnet_row = phase_effnet(args.seed)
-    print(f"path I took {time.perf_counter() - t0:.1f} s", flush=True)
-    print("path I: " + json.dumps(effnet_row), flush=True)
-    t0 = time.perf_counter()
-    real5_row = phase_real5(args.seed)
-    print(f"path J took {time.perf_counter() - t0:.1f} s", flush=True)
-    print("path J: " + json.dumps(real5_row), flush=True)
-    j2 = real5_row["j2"]
+    run("I", phase_effnet, args.seed)
+    run("J", phase_real5, args.seed)
+    run("K", phase_densenet, args.seed)
+    run("L", phase_swin, args.seed)
+    run("M", phase_zoo, args.seed, scratch / "path_m")
+
+    train, learn_row, sup_row = rows["C"]["full"], rows["D"], rows["E"]
+    f2, f3 = rows["F"]["f2"], rows["F"]["f3"]
+    g2, g3 = rows["G"]["g2"], rows["G"]["g3"]
+    j2, k2 = rows["J"]["j2"], rows["K"]["k2"]
+
+    def fused(r, side):
+        return {"launches_per_step": r["launches_per_step"],
+                "max_abs_err": r["kernel_max_abs_err"], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": "bytes", "shape": r["shape"], "mode": "crop+pad",
+                "pad": int(side * 0.125)}
 
     kernels = [{
         "name": "randaugment_mc", "route": "cuda",
@@ -3234,14 +3496,12 @@ def main(argv=None) -> int:
                        g3["launches_steps_per_epoch"],
                    "g3_real_2_1_launches_per_step":
                        g3["real_2_1_launches_per_step"]},
-        "path_h": {"launches": ezbm_row["launches"]},
-        "path_i": {"launches": effnet_row["launches"]},
-        "path_j": {"launches_per_step": j2["launches_per_step"],
-                   "max_abs_err": j2["kernel_max_abs_err"],
-                   "ms": j2["kernel_ms"], "plain_ms": j2["plain_ms"],
-                   "bound_ms": j2["bound_ms"], "bound_by": "bytes",
-                   "shape": j2["shape"], "mode": "crop+pad",
-                   "pad": int(path_j.REAL_5["DATA"]["IMG_SIZE"] * 0.125)},
+        "path_h": {"launches": rows["H"]["launches"]},
+        "path_i": {"launches": rows["I"]["launches"]},
+        "path_j": fused(j2, path_j.REAL_5["DATA"]["IMG_SIZE"]),
+        "path_k": fused(k2, path_k.REAL_3_1_DENSENET["DATA"]["IMG_SIZE"]),
+        "path_l": {"launches": rows["L"]["launches"]},
+        "path_m": {"launches": rows["M"]["launches"]},
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,10 +17,14 @@ names are their flax module paths joined by dots. In all:
   batch statistics become running statistics (the MLP head's ``fc.bn``
   too); a LayerNorm's ``scale``/``bias`` (no statistics) become
   ``weight``/``bias``;
-- the Conformer's dense kernels include ``qkv``, whose output order
-  ``(3, heads, head_dim)`` is kept; its ``cls_token``, and SASA's relative
-  encodings, are copied as they are; a depthwise kernel ``(k, k, 1, C)``
-  becomes ``(C, 1, k, k)`` like any other.
+- the dense kernels include the attention layers' ``qkv``, whose output
+  order ``(3, heads, head_dim)`` is kept; bare parameters (``cls_token``,
+  SASA's relative encodings, Swin's and CoAtNet's bias tables, SwinMLP's
+  per-head ``weight``/``bias``, the shuffle gate's weights, LSA's
+  ``temperature``, the position embedding) are copied as they are; a
+  depthwise kernel ``(k, k, 1, C)`` becomes ``(C, 1, k, k)`` like any
+  other, and a GroupNorm's ``scale``/``bias`` (no statistics) become
+  ``weight``/``bias``.
 
 ``write_npz``/``read_npz`` store the two trees as one flat ``.npz`` (keys
 like ``params/backbone/conv1/kernel``), so a dump made beside the JAX
@@ -69,6 +73,8 @@ def _key_map(stage_sizes) -> Dict[str, Tuple[str, ...]]:
                 m[f"{tp}.{name}"] = (fp, name)
             m[f"{tp}.downsample.0"] = (fp, "downsample_conv")
             m[f"{tp}.downsample.1"] = (fp, "downsample_bn")
+            for gate in ("se", "cbam", "sa"):
+                m[f"{tp}.{gate}"] = (fp, gate)
     return m
 
 
@@ -84,10 +90,13 @@ def _walk(tree: Mapping, path: Tuple[str, ...]):
 def _bare_items(params: Mapping, batch_stats: Optional[Mapping],
                 path: Tuple[str, ...] = ()):
     """``(port key, value)`` for a tree whose port names are its flax paths
-    joined by dots (the Conformer, the EfficientNet, a SASA layer)."""
+    joined by dots (under ``path``); ``batch_stats`` is the statistics tree
+    at the same place."""
     for name, node in params.items():
         at = path + (name,)
         key = ".".join(at)
+        stats = (batch_stats.get(name) if isinstance(batch_stats, Mapping)
+                 else None)
         if not isinstance(node, Mapping):  # a bare parameter: cls_token
             yield key, node
         elif "kernel" in node:
@@ -99,32 +108,30 @@ def _bare_items(params: Mapping, batch_stats: Optional[Mapping],
         elif "scale" in node:
             yield f"{key}.weight", node["scale"]
             yield f"{key}.bias", node["bias"]
-            stats = (None if batch_stats is None
-                     else _walk(batch_stats, at))
-            if stats is not None:  # BatchNorm; a LayerNorm has none
+            if stats is not None:  # BatchNorm; a Layer/GroupNorm has none
                 yield f"{key}.running_mean", stats["mean"]
                 yield f"{key}.running_var", stats["var"]
         else:
-            yield from _bare_items(node, batch_stats, at)
+            yield from _bare_items(node, stats, at)
 
 
 def _resnet_items(p_bb: Mapping, b_bb: Optional[Mapping]):
     """``(port key, value)`` of a flax ResNet trunk, through the key map."""
     for tkey, path in _key_map(_stage_sizes(p_bb)).items():
         node = _walk(p_bb, path)
-        if node is None:  # a block without a downsample
+        if node is None:  # a block without a downsample or a gate
             continue
         if "kernel" in node:
             yield (f"backbone.{tkey}.weight",
                    np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
             continue
-        if "scale" not in node:  # a SASA layer in conv2's place
-            yield from _bare_items(node, None, (f"backbone.{tkey}",))
+        stats = None if b_bb is None else _walk(b_bb, path)
+        if "scale" not in node:  # a gate, or a SASA layer in conv2's place
+            yield from _bare_items(node, stats, (f"backbone.{tkey}",))
             continue
         yield f"backbone.{tkey}.weight", node["scale"]
         yield f"backbone.{tkey}.bias", node["bias"]
         if b_bb is not None:
-            stats = _walk(b_bb, path)
             if stats is None:
                 raise KeyError(f"batch_stats has no entry for {path}")
             yield f"backbone.{tkey}.running_mean", stats["mean"]
@@ -142,8 +149,8 @@ def _port_items(params: Mapping, batch_stats: Optional[Mapping]):
     b_bb = None if batch_stats is None else batch_stats.get("backbone", {})
     if _stage_sizes(p_bb):
         yield from _resnet_items(p_bb, b_bb)
-    else:  # the EfficientNet
-        yield from _bare_items({"backbone": p_bb}, batch_stats)
+    else:  # every other backbone
+        yield from _bare_items(p_bb, b_bb, ("backbone",))
     heads = ((("head", "fc"),) if "head" in params else
              (("fc", "fc1"), ("fc", "bn"), ("fc", "fc2"),
               ("head_emb", "proj1"), ("head_emb", "proj2")))

@@ -19,18 +19,27 @@ the model's own initialization. After the graft the EMA teacher is
 re-synced to the model, as the reference's EMA copies the model after the
 transfer load.
 
-Of ``ckpt/torch_import.py`` the ResNet, Conformer and EfficientNet maps
-are ported. The port's ResNet keeps torchvision's module names, so its
-key map is the ``backbone.`` prefix; the SASA ResNet's attention layer is
-named ``conv2`` with the reference's ``q_conv``/``k_conv``/``v_conv`` and
-``rel_encoding_h/w``, so the same prefix carries it. The port's Conformer
-keeps the reference's names, so its map is the identity. The port's
-EfficientNet keeps flax's names, so timm 0.5.4's module paths are renamed
-with the JAX package's rules, in their order, then prefixed. Each skips
-its heads (the ResNet's ``fc``/``head``/``classifier``; the Conformer's
-``conv_cls_head``, ``trans_cls_head`` and ``pooling``; the EfficientNet's
-``classifier``), whatever their shape. A ``.pth`` for another architecture
-raises (ROADMAP.md).
+Every family map of ``ckpt/torch_import.py`` is ported (``_ARCHES``,
+chosen by :func:`arch_for_model`). The port's ResNet keeps torchvision's
+module names, so its map is the ``backbone.`` prefix and the gates'
+renames: the reference's SE convolutions (``conv_down``/``conv_up`` on the
+block, or under ``selayer``) to ``se.fc_down``/``se.fc_up``, CBAM's
+``ChannelGate.mlp.{1,3}`` and ``SpatialGate.spatial.{conv,bn}`` to flax's
+names; the SASA layer is named ``conv2`` with the reference's names, and
+the shuffle gate's ``sa.*`` map as they are. The port's Conformer keeps
+the reference's names, so its map is the identity. Every other port model
+(EfficientNet, DenseNet, Swin, SwinMLP, CoAtNet, ViT-LSA) keeps flax's
+names, so the reference's module paths (timm 0.5.4's, MSR Swin's, the
+reference's own) are renamed with the JAX package's rules, in their order,
+then prefixed. Where the reference holds the same elements in another
+shape (SwinMLP's grouped ``Conv1d`` ``spatial_mlp``, ``(heads · ws², ws²,
+1)``; the shuffle gate's ``(1, C, 1, 1)`` weights) the tensor is reshaped
+to the port's (``_RESHAPE_PATHS``). Each family skips its heads (the
+ResNet's ``fc``/``head``/``classifier``, the Conformer's
+``conv_cls_head``, ``trans_cls_head`` and ``pooling``, ...) whatever their
+shape, and the buffers the port rebuilds (Swin's
+``relative_position_index`` and ``attn_mask``, CoAtNet's
+``relative_index``).
 """
 
 from __future__ import annotations
@@ -73,15 +82,98 @@ _EFFICIENTNET_RENAMES = (
     (r"^conv_head", r"head_conv"),
     (r"^bn2", r"head_bn"),
 )
-# model family → (the prefix of its port names, its heads, the renames of
-# its module paths)
-_TORCH_MAPS = {
-    "resnet": ("backbone.", re.compile(r"^(fc|head|classifier)\b"), ()),
-    "conformer": ("", re.compile(r"^(conv_cls_head|trans_cls_head|pooling)\b"),
-                  ()),
-    "efficientnet": ("backbone.", re.compile(r"^classifier\b"),
-                     _EFFICIENTNET_RENAMES),
+# timm 0.5.4 / MSR Swin and SwinMLP
+_SWIN_RENAMES = (
+    (r"^patch_embed\.proj", r"patch_embed"),
+    (r"^patch_embed\.norm", r"patch_norm"),
+    (r"^layers\.(\d+)\.blocks\.(\d+)\.", r"stage\1_block\2."),
+    (r"^layers\.(\d+)\.downsample\.", r"merge\1."),
+    (r"\.mlp\.fc1", r".mlp_fc1"),
+    (r"\.mlp\.fc2", r".mlp_fc2"),
+)
+_SWIN_HEADS = (r"^head\b", r"^fc1\b", r"^fc2\b", r"^bn\b",
+               r"^absolute_pos_embed$")
+# family → (the prefix of its port names, its skips (heads, and buffers
+# the port rebuilds), the renames of its module paths); the JAX package's
+# ckpt/torch_import.py::_ARCHES
+_ARCHES = {
+    "resnet": ("backbone.", (r"^fc\b", r"^head\b", r"^classifier\b"), (
+        (r"^(layer\d+\.\d+)\.selayer\.conv_down", r"\1.se.fc_down"),
+        (r"^(layer\d+\.\d+)\.selayer\.conv_up", r"\1.se.fc_up"),
+        (r"^(layer\d+\.\d+)\.conv_down", r"\1.se.fc_down"),
+        (r"^(layer\d+\.\d+)\.conv_up", r"\1.se.fc_up"),
+        (r"\.cbam\.ChannelGate\.mlp\.1", r".cbam.mlp_fc1"),
+        (r"\.cbam\.ChannelGate\.mlp\.3", r".cbam.mlp_fc2"),
+        (r"\.cbam\.SpatialGate\.spatial\.conv", r".cbam.spatial_conv"),
+        (r"\.cbam\.SpatialGate\.spatial\.bn", r".cbam.spatial_bn"),
+    )),
+    "vit_lsa": ("backbone.", (r"^mlp_head\b",), (
+        (r"^to_patch_embedding\.to_patch_tokens\.1",
+         r"to_patch_embedding.norm"),
+        (r"^to_patch_embedding\.to_patch_tokens\.2",
+         r"to_patch_embedding.proj"),
+        (r"^transformer\.layers\.(\d+)\.0\.norm", r"norm1_\1"),
+        (r"^transformer\.layers\.(\d+)\.0\.fn\.to_out\.0", r"attn_\1.to_out"),
+        (r"^transformer\.layers\.(\d+)\.0\.fn\.to_qkv", r"attn_\1.to_qkv"),
+        (r"^transformer\.layers\.(\d+)\.0\.fn", r"attn_\1"),
+        (r"^transformer\.layers\.(\d+)\.1\.norm", r"norm2_\1"),
+        (r"^transformer\.layers\.(\d+)\.1\.fn\.net\.0", r"mlp1_\1"),
+        (r"^transformer\.layers\.(\d+)\.1\.fn\.net\.3", r"mlp2_\1"),
+    )),
+    "coatnet": ("backbone.", (r"^fc1\b", r"^fc2\b", r"relative_index$"), (
+        (r"^s0\.(\d+)\.0", r"s0_conv\1"),
+        (r"^s0\.(\d+)\.1", r"s0_bn\1"),
+        (r"^s(\d)\.(\d+)\.conv\.norm", r"s\1_block\2.pre_bn"),
+        (r"^s(\d)\.(\d+)\.conv\.fn\.0", r"s\1_block\2.pw"),
+        (r"^s(\d)\.(\d+)\.conv\.fn\.1", r"s\1_block\2.bn1"),
+        (r"^s(\d)\.(\d+)\.conv\.fn\.3", r"s\1_block\2.dw"),
+        (r"^s(\d)\.(\d+)\.conv\.fn\.4", r"s\1_block\2.bn2"),
+        (r"^s(\d)\.(\d+)\.conv\.fn\.6\.fc\.0", r"s\1_block\2.se_fc1"),
+        (r"^s(\d)\.(\d+)\.conv\.fn\.6\.fc\.2", r"s\1_block\2.se_fc2"),
+        (r"^s(\d)\.(\d+)\.conv\.fn\.7", r"s\1_block\2.pw_linear"),
+        (r"^s(\d)\.(\d+)\.conv\.fn\.8", r"s\1_block\2.bn3"),
+        (r"^s(\d)\.(\d+)\.attn\.1\.norm", r"s\1_block\2.attn_norm"),
+        (r"^s(\d)\.(\d+)\.attn\.1\.fn\.to_out\.0", r"s\1_block\2.attn.to_out"),
+        (r"^s(\d)\.(\d+)\.attn\.1\.fn", r"s\1_block\2.attn"),
+        (r"^s(\d)\.(\d+)\.ff\.1\.norm", r"s\1_block\2.ff_norm"),
+        (r"^s(\d)\.(\d+)\.ff\.1\.fn\.net\.0", r"s\1_block\2.ff1"),
+        (r"^s(\d)\.(\d+)\.ff\.1\.fn\.net\.3", r"s\1_block\2.ff2"),
+        (r"^s(\d)\.(\d+)\.proj", r"s\1_block\2.proj"),
+    )),
+    "densenet": ("backbone.", (r"^classifier\b",), (
+        (r"^features\.denseblock(\d+)\.denselayer(\d+)\.",
+         r"block\1_layer\2."),
+        (r"^features\.transition(\d+)\.", r"transition\1."),
+        (r"^features\.norm5", r"norm_final"),
+        (r"^features\.", r""),
+    )),
+    "swin": ("backbone.", _SWIN_HEADS + (r"relative_position_index$",
+                                         r"attn_mask$"), _SWIN_RENAMES),
+    "swin_mlp": ("backbone.", _SWIN_HEADS, _SWIN_RENAMES),
+    "conformer": ("", (r"^conv_cls_head\b", r"^trans_cls_head\b",
+                       r"^pooling\b"), ()),
+    "efficientnet": ("backbone.", (r"^classifier\b",), _EFFICIENTNET_RENAMES),
 }
+# renamed module paths whose reference tensors hold the port's elements in
+# another shape, matched against the path's last component
+_RESHAPE_PATHS = {"swin_mlp": re.compile(r"^spatial_mlp$"),
+                  "resnet": re.compile(r"^sa$")}
+
+
+def arch_for_model(name: str) -> str:
+    """``MODEL.NAME`` → its family in ``_ARCHES``."""
+    name = str(name)
+    for prefixes, arch in ((("resnet", "seresnext"), "resnet"),
+                           (("densenet",), "densenet"),
+                           (("swin_mlp",), "swin_mlp"), (("swin",), "swin"),
+                           (("conformer",), "conformer"),
+                           (("efficientnet",), "efficientnet"),
+                           (("vit",), "vit_lsa"), (("coatnet",), "coatnet")):
+        if name.startswith(prefixes):
+            return arch
+    raise NotImplementedError(
+        f"no torch import key map for '{name}'; supported families: "
+        f"{sorted(_ARCHES)}")
 
 
 def graft_tree(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor]
@@ -110,25 +202,17 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return ckpt
 
 
-def _torch_map(model_name: str):
-    for family, spec in _TORCH_MAPS.items():
-        if str(model_name).startswith(family):
-            return family, spec
-    raise NotImplementedError(
-        f"no torch import key map for '{model_name}' in endoscopy_tpu_torch "
-        f"yet ({', '.join(_TORCH_MAPS)} only); see the port queue in "
-        "ROADMAP.md")
-
-
 def import_torch_state(dst: Mapping[str, torch.Tensor],
                        state_dict: Mapping[str, torch.Tensor],
                        model_name: str = "resnet"):
     """A reference state dict onto the port's names: ``module.`` and
-    ``model.`` wrappers stripped, heads, ``num_batches_tracked`` and
-    aliases skipped, the family's module renames applied, its prefix
-    prepended. Returns ``(new state, imported, shape mismatches, unmapped
-    keys)``."""
-    _, (prefix, head_re, renames) = _torch_map(model_name)
+    ``model.`` wrappers stripped, heads, buffers, ``num_batches_tracked``
+    and aliases skipped, the family's module renames applied, its prefix
+    prepended, a reshaped path's tensor reshaped to the port's shape.
+    Returns ``(new state, imported, shape mismatches, unmapped keys)``."""
+    arch = arch_for_model(model_name)
+    prefix, skips, renames = _ARCHES[arch]
+    reshape = _RESHAPE_PATHS.get(arch)
     mapped, mismatch, unmapped = {}, [], []
     for tkey, value in state_dict.items():
         key = tkey
@@ -136,7 +220,7 @@ def import_torch_state(dst: Mapping[str, torch.Tensor],
             if key.startswith(wrap):
                 key = key[len(wrap):]
         if (_ALIAS_RE.match(key) or key.endswith("num_batches_tracked")
-                or head_re.match(key)):
+                or any(re.search(skip, key) for skip in skips)):
             continue
         module, _, leaf = key.rpartition(".")
         for pattern, repl in renames:
@@ -144,7 +228,11 @@ def import_torch_state(dst: Mapping[str, torch.Tensor],
         name = prefix + (f"{module}.{leaf}" if module else leaf)
         if name not in dst:
             unmapped.append(tkey)
-        elif tuple(value.shape) != tuple(dst[name].shape):
+            continue
+        if (reshape is not None and reshape.match(module.rpartition(".")[2])
+                and value.numel() == dst[name].numel()):
+            value = value.reshape(dst[name].shape)
+        if tuple(value.shape) != tuple(dst[name].shape):
             mismatch.append(tkey)
         else:
             mapped[name] = value
@@ -166,7 +254,7 @@ def load_pretrained_into(model: nn.Module, path: str, model_name: str) -> str:
         report = (f"graft: {n} tensors copied, {len(miss)} shape-mismatched "
                   f"(head surgery): {miss[:4]}")
     else:
-        family, _ = _torch_map(model_name)
+        family = arch_for_model(model_name)
         new, n, miss, unmapped = import_torch_state(
             dst, load_torch_checkpoint(path), model_name)
         if n == 0:

@@ -23,7 +23,7 @@ The flax module's numerics are kept:
 
 Where flax computes in float32, the port computes in float32 or, for a
 model cast to float64 (the precision reference of the card checks), in
-float64 (:func:`_wide`).
+float64 (``models/layers.py``).
 
 Fresh weights follow flax's initializer: ``lecun_normal`` kernels and zero
 biases for every convolution and dense layer (``conv_project`` and
@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from endoscopy_tpu_torch.models.layers import attention, norm32, wide
 from endoscopy_tpu_torch.models.resnet import (BatchNorm2d, _flax_running_var,
                                                conv2d, dense)
 
@@ -56,17 +57,6 @@ def _bn(ch: int) -> BatchNorm2d:
 
 def _ln(ch: int) -> nn.LayerNorm:
     return nn.LayerNorm(ch, eps=EPS)
-
-
-def _wide(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in float32, or float64 if it is float64."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
-
-
-def _norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """flax ``LayerNorm(dtype=float32)``, cast back to ``x``'s dtype."""
-    return F.layer_norm(_wide(x), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(x.dtype)
 
 
 class Mlp(nn.Module):
@@ -91,10 +81,7 @@ class Attention(nn.Module):
         b, n, c = x.shape
         qkv = self.qkv(x).view(b, n, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each (b, heads, n, head_dim)
-        with torch.autocast(x.device.type, enabled=False):
-            attn = torch.matmul(_wide(q), _wide(k).transpose(-2, -1))
-            attn = torch.softmax(attn * self.head_dim ** -0.5, dim=-1)
-        out = torch.matmul(attn.to(v.dtype), v)
+        out = attention(q, k, v, lambda a: a * self.head_dim ** -0.5)
         return self.proj(out.transpose(1, 2).reshape(b, n, c))
 
 
@@ -110,8 +97,8 @@ class TransBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(_norm(self.norm1, x))
-        return x + self.mlp(_norm(self.norm2, x))
+        x = x + self.attn(norm32(self.norm1, x))
+        return x + self.mlp(norm32(self.norm2, x))
 
 
 class ConvBlock(nn.Module):
@@ -160,7 +147,7 @@ class FCUDown(nn.Module):
         y = self.conv_project(x)
         if self.dw_stride > 1:
             y = F.avg_pool2d(y, self.dw_stride)
-        y = F.gelu(_norm(self.ln, y.flatten(2).transpose(1, 2)))
+        y = F.gelu(norm32(self.ln, y.flatten(2).transpose(1, 2)))
         return torch.cat([x_t[:, :1], y], dim=1)
 
 
@@ -277,8 +264,8 @@ class Conformer(nn.Module):
         for i in range(2, self.depth + 1):
             xc, xt = getattr(self, f"conv_trans_{i}")(xc, xt)
         with torch.autocast(x.device.type, enabled=False):
-            conv_cls = self.conv_cls_head(_wide(xc.mean(dim=(2, 3))))
-            trans_cls = self.trans_cls_head(self.trans_norm(_wide(xt[:, 0])))
+            conv_cls = self.conv_cls_head(wide(xc.mean(dim=(2, 3))))
+            trans_cls = self.trans_cls_head(self.trans_norm(wide(xt[:, 0])))
         return conv_cls, trans_cls
 
 

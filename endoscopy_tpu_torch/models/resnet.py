@@ -1,9 +1,15 @@
 """ResNet backbone in PyTorch (port of ``endoscopy_tpu/models/resnet.py``).
 
-The plain ResNet-v1 form and the SASA variant (``resnet50sasa``: the 3x3
-``conv2`` of the last two stages replaced by ``models/attention.py::
-SASALayer``); SE and the other attention gates are not ported yet. The
-JAX module's conventions are kept so weights carry across unchanged:
+The plain ResNet-v1 form (``resnet50``, ``resnet101``); SE-ResNets
+(``resnet50se``, ``resnet101se``, ``resnet152se``: a squeeze-excite gate
+after ``bn3`` whose two 1x1 convolutions have biases) and SE-ResNeXt-50
+32x4d (``seresnext50``: the grouped ``conv2``, ``width =
+int(filters · base_width / 64) · groups``); the gated ResNet-50s
+(``resnet50cbam``, ``resnet50sa``: ``models/attention.py``'s CBAM or
+shuffle attention after ``bn3``); and the SASA variant (``resnet50sasa``:
+the 3x3 ``conv2`` of the last two stages replaced by
+``models/attention.py::SASALayer``). The JAX module's conventions are
+kept so weights carry across unchanged:
 
 - the stage stride sits on the 3x3 ``conv2``; the SASA variant puts it on
   the 1x1 ``conv1`` of every block, SASA or not (the reference's
@@ -23,7 +29,9 @@ JAX module's conventions are kept so weights carry across unchanged:
 Torch is NCHW; on the card the caller moves the model and its input to
 ``channels_last``, the layout the JAX package (NHWC) computes in.
 State-dict keys follow torchvision (``layer1.0.downsample.0``), which is
-what ``ckpt/convert.py`` maps the flax tree onto.
+what ``ckpt/convert.py`` maps the flax tree onto; a gate keeps flax's
+names under the block (``layer1.0.se.fc_down``, ``layer1.0.cbam.
+spatial_bn``, ``layer1.0.sa.gn``).
 """
 
 from __future__ import annotations
@@ -117,31 +125,63 @@ def _bn(ch: int) -> BatchNorm2d:
     return BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
+class SEModule(nn.Module):
+    """Squeeze-and-excitation: mean over the pixels → 1x1 down (C / 16) →
+    ReLU → 1x1 up → sigmoid gate; both convolutions have biases."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc_down = conv2d(channels, channels // reduction, 1, bias=True)
+        self.fc_up = conv2d(channels // reduction, channels, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.fc_up(torch.relu(self.fc_down(x.mean((2, 3), keepdim=True))))
+        return x * torch.sigmoid(s)
+
+
 class Bottleneck(nn.Module):
-    """1x1 reduce → 3x3 (stride) → 1x1 expand(x4) → +identity → ReLU.
-    ``stride_on_conv1`` moves the stride to the 1x1; ``sasa_side`` (the
-    side the block computes at) makes ``conv2`` a SASA layer, which takes
-    the stride on the 1x1 too."""
+    """1x1 reduce → 3x3 (stride, ``groups``) → 1x1 expand(x4) → [gate] →
+    +identity → ReLU. ``stride_on_conv1`` moves the stride to the 1x1;
+    ``sasa_side`` (the side the block computes at) makes ``conv2`` a SASA
+    layer, which takes the stride on the 1x1 too. The gate is SE
+    (``use_se``) or ``attn`` ('cbam' or 'sa': the shuffle attention's
+    groups clamped to ``min(64, C / 4)`` for narrow models)."""
 
     expansion = 4
 
     def __init__(self, in_ch: int, filters: int, stride: int = 1,
                  stride_on_conv1: bool = False,
-                 sasa_side: Optional[int] = None):
+                 sasa_side: Optional[int] = None, use_se: bool = False,
+                 groups: int = 1, base_width: int = 64,
+                 attn: Optional[str] = None):
         super().__init__()
+        width = int(filters * (base_width / 64.0)) * groups
         out_ch = filters * self.expansion
         first = stride_on_conv1 or sasa_side is not None
-        self.conv1 = conv2d(in_ch, filters, 1, stride=stride if first else 1)
-        self.bn1 = _bn(filters)
+        self.conv1 = conv2d(in_ch, width, 1, stride=stride if first else 1)
+        self.bn1 = _bn(width)
         if sasa_side is None:
-            self.conv2 = conv2d(filters, filters, 3,
-                                stride=1 if first else stride, padding=1)
+            self.conv2 = conv2d(width, width, 3,
+                                stride=1 if first else stride, padding=1,
+                                groups=groups)
         else:  # named conv2 as the reference's, so .pth keys carry over
             from endoscopy_tpu_torch.models.attention import SASALayer
-            self.conv2 = SASALayer(filters, side=sasa_side)
-        self.bn2 = _bn(filters)
-        self.conv3 = conv2d(filters, out_ch, 1)
+            self.conv2 = SASALayer(width, side=sasa_side)
+        self.bn2 = _bn(width)
+        self.conv3 = conv2d(width, out_ch, 1)
         self.bn3 = _bn(out_ch)
+        # the gate's attribute name, flax's module name
+        self.gate = "se" if use_se else attn
+        if use_se:
+            self.se = SEModule(out_ch)
+        elif attn == "cbam":
+            from endoscopy_tpu_torch.models.attention import CBAM
+            self.cbam = CBAM(out_ch)
+        elif attn == "sa":
+            from endoscopy_tpu_torch.models.attention import ShuffleAttention
+            self.sa = ShuffleAttention(out_ch, groups=min(64, out_ch // 4))
+        elif attn is not None:
+            raise ValueError(f"unknown ResNet gate {attn!r}")
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if in_ch != out_ch or stride != 1:
@@ -153,19 +193,24 @@ class Bottleneck(nn.Module):
         y = self.relu(self.bn1(self.conv1(x)))
         y = self.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
+        if self.gate is not None:
+            y = getattr(self, self.gate)(y)
         residual = x if self.downsample is None else self.downsample(x)
         return self.relu(y + residual)
 
 
 class ResNet(nn.Module):
     """ResNet backbone producing pooled float32 ``(B, C)`` features;
-    ``stage_sizes=(3, 4, 6, 3)`` is ResNet-50. ``sasa_stages`` (0-based)
-    get SASA layers sized for ``img_size`` px inputs: their relative
-    encodings' window is ``min(7, side)``, as flax fixes it at init."""
+    ``stage_sizes=(3, 4, 6, 3)`` is ResNet-50. ``use_se``, ``groups``,
+    ``base_width`` and ``attn`` are :class:`Bottleneck`'s, for every block.
+    ``sasa_stages`` (0-based) get SASA layers sized for ``img_size`` px
+    inputs: their relative encodings' window is ``min(7, side)``, as flax
+    fixes it at init."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  num_filters: int = 64, sasa_stages: Sequence[int] = (),
-                 img_size: int = 224):
+                 img_size: int = 224, use_se: bool = False, groups: int = 1,
+                 base_width: int = 64, attn: Optional[str] = None):
         super().__init__()
         self.stage_sizes = tuple(int(s) for s in stage_sizes)
         self.conv1 = conv2d(3, num_filters, 7, stride=2, padding=3)
@@ -184,7 +229,9 @@ class ResNet(nn.Module):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 blocks.append(Bottleneck(in_ch, filters, stride,
                                          stride_on_conv1=bool(sasa_stages),
-                                         sasa_side=sasa_side))
+                                         sasa_side=sasa_side, use_se=use_se,
+                                         groups=groups, base_width=base_width,
+                                         attn=attn))
                 in_ch = filters * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_features = in_ch
@@ -203,6 +250,36 @@ class ResNet(nn.Module):
 
 def resnet50() -> ResNet:
     return ResNet(stage_sizes=(3, 4, 6, 3))
+
+
+def resnet101() -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 23, 3))
+
+
+def resnet50se() -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), use_se=True)
+
+
+def resnet101se() -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 23, 3), use_se=True)
+
+
+def resnet152se() -> ResNet:
+    return ResNet(stage_sizes=(3, 8, 36, 3), use_se=True)
+
+
+def seresnext50() -> ResNet:
+    """SE-ResNeXt-50 32x4d."""
+    return ResNet(stage_sizes=(3, 4, 6, 3), use_se=True, groups=32,
+                  base_width=4)
+
+
+def resnet50cbam() -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), attn="cbam")
+
+
+def resnet50sa() -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), attn="sa")
 
 
 def resnet50sasa(img_size: int = 224) -> ResNet:

@@ -2,11 +2,20 @@
 
 The JAX package lowers the forward to StableHLO; the port ships a
 port-owned artifact instead: ``torch.save`` of ``{format, arch,
-num_classes, img_size, input_size, dtype, batch, state_dict}``, loaded back
-with ``weights_only=True`` (tensors and plain values only, no pickled
-code). Serving rebuilds the model from ``arch`` and runs the same eval
-forward: canonical uint8 NHWC → center crop + ImageNet normalize → backbone
-→ head → float32 softmax.
+num_classes, img_size, input_size, dtype, batch, model, state_dict}``,
+loaded back with ``weights_only=True`` (tensors and plain values only, no
+pickled code). Serving rebuilds the model from ``arch``, the ``MODEL``
+fields that shape it (``model``: the wrapper's ``TYPE_SEMI``,
+``IS_TRIPLET``, ``LOW_DIM``, ``MARGIN``, and the Conformer's
+``EMBED_DIM``, ``DEPTH``, ...) and ``img_size`` (``DATA.IMG_SIZE``: the
+side-sized backbones, SASA's encodings, Swin's windows, CoAtNet's tables,
+ViT-LSA's position embedding, are built for it), and runs the same eval
+forward: canonical uint8 NHWC → center crop + ImageNet normalize →
+backbone → head → float32 softmax. A model with several outputs serves
+its first (``train/common.py::model_logits``): ``ModelwEmb``'s logits,
+the Conformer's conv head alone, as the JAX export does. An artifact
+without ``model`` (written before it) rebuilds from ``arch`` and
+``num_classes`` as it did.
 
 ``quantize="int8"`` stores the weight-only int8 kernels and their scales
 (``serve/quantize.py``) and records the mode as ``quantize``;
@@ -16,9 +25,6 @@ dequantized weights, the numbers the JAX artifact computes when XLA folds
 the same convert × scale into its constants. An artifact without the key
 (the first format) loads as before.
 
-The Conformer is not served yet (ROADMAP.md): the JAX export serves its
-conv head alone, and the artifact would also have to carry the model's
-``MODEL`` overrides; ``export_model`` refuses it.
 """
 
 from __future__ import annotations
@@ -33,10 +39,15 @@ from endoscopy_tpu_torch.config.loader import default_config
 from endoscopy_tpu_torch.data.pipeline import canonical_size
 from endoscopy_tpu_torch.device import resolve_device, resolve_dtype
 from endoscopy_tpu_torch.models import build_model
+from endoscopy_tpu_torch.models.registry import CONFORMER_FIELDS
 from endoscopy_tpu_torch.serve.quantize import (dequantize_state_dict,
                                                 quantize_state_dict)
+from endoscopy_tpu_torch.train.common import model_logits
 
 FORMAT = "endoscopy_tpu_torch.serve/1"
+# the MODEL fields besides NAME and NUM_CLASSES that shape the built model
+MODEL_FIELDS = ("TYPE_SEMI", "IS_TRIPLET", "LOW_DIM", "MARGIN",
+                *(key for key, _ in CONFORMER_FIELDS))
 
 
 def make_infer_fn(model: torch.nn.Module, img_size: int, dtype: str = "bfloat16",
@@ -56,7 +67,7 @@ def make_infer_fn(model: torch.nn.Module, img_size: int, dtype: str = "bfloat16"
         x = x.permute(0, 3, 1, 2)  # NCHW shape, channels_last strides
         with torch.autocast(device_type=dev.type, dtype=torch.bfloat16,
                             enabled=cdtype == torch.bfloat16):
-            logits = model(x)
+            logits = model_logits(model(x))
         return torch.softmax(logits.float(), dim=-1).cpu().numpy()
 
     return infer
@@ -77,10 +88,6 @@ def export_model(config, state_dict: Mapping[str, torch.Tensor], out_path: str,
     kernels as int8 with per-channel scales. Returns
     ``(canonical_input_size, num_classes)``."""
     _check_quantize(quantize)
-    if config.MODEL.NAME == "conformer":
-        raise NotImplementedError(
-            "serving the Conformer is not ported to endoscopy_tpu_torch "
-            "yet; see the port queue in ROADMAP.md")
     model = build_model(config)
     model.load_state_dict(state_dict, strict=True)
     size = canonical_size(config)
@@ -93,6 +100,8 @@ def export_model(config, state_dict: Mapping[str, torch.Tensor], out_path: str,
         "dtype": str(config.TRAIN.get("DTYPE", "bfloat16")),
         "batch": None if batch is None else int(batch),
         "quantize": quantize,
+        "model": {key: config.MODEL[key] for key in MODEL_FIELDS
+                  if key in config.MODEL},
         "state_dict": (quantize_state_dict(model) if quantize else
                        {k: v.detach().cpu()
                         for k, v in model.state_dict().items()}),
@@ -108,8 +117,10 @@ def load_exported(path: str, device=None):
     art = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(art, dict) or art.get("format") != FORMAT:
         raise ValueError(f"{path} is not an {FORMAT} artifact")
-    config = default_config({"MODEL": {"NAME": art["arch"],
-                                       "NUM_CLASSES": art["num_classes"]}})
+    config = default_config({
+        "MODEL": {"NAME": art["arch"], "NUM_CLASSES": art["num_classes"],
+                  **art.get("model", {})},
+        "DATA": {"IMG_SIZE": art["img_size"]}})
     model = build_model(config)
     state = art["state_dict"]
     quantize = art.get("quantize")

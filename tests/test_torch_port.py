@@ -18,10 +18,14 @@ transfer into ``ModelwEmb``), ``semiformer`` (the Conformer, its conversion,
 fresh weights and ``.pth`` graft, the SemiFormer trainer's two steps,
 evaluation and ``run_config``, the supervised trainer on the Conformer),
 ``ezbm`` (the EZBM trainer: the stage-2 sampler, both stages' steps,
-``fit``'s stage switch, the Kvasir-Capsule graft, the path H-J presets) and
+``fit``'s stage switch, the Kvasir-Capsule graft, the path H-J presets),
+``zoo`` (the rest of the zoo: the SE, gated and grouped ResNets, DenseNet,
+Swin, SwinMLP, CoAtNet, ViT-LSA and HaloAttention against flax, one
+supervised step each, their ``.pth`` maps, the path K-L presets) and
 ``nojax`` (the import and device rules); ``models`` also holds the
-EfficientNet, the SASA ResNet, their ``.pth`` maps and every preset's
-parameter count. This one test runs every case and reports every failure
+EfficientNet, the SASA ResNet, their ``.pth`` maps and every preset's and
+registry name's parameter count; ``serve`` the side-sized and the
+Conformer artifacts. This one test runs every case and reports every failure
 with its traceback. It is one test item so that the counts of the JAX
 suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
 within 2, stay the JAX suite's.
@@ -33,10 +37,10 @@ import torch
 
 from torch_port_checks import (comatch, ezbm, learn, models, nojax,
                                randaugment, semiformer, serve, supervised,
-                               train, views)
+                               train, views, zoo)
 
 MODULES = (models, randaugment, views, serve, train, learn, supervised,
-           comatch, semiformer, ezbm, nojax)
+           comatch, semiformer, ezbm, zoo, nojax)
 
 
 def _cases():

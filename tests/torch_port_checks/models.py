@@ -12,7 +12,9 @@ EfficientNet names, the reference's SASA ResNet names) land every tensor
 where the JAX package's ``ckpt/torch_import.py`` lands it, exactly. Every
 preset under ``configs/`` builds in the port with the JAX ``build_model``'s
 parameter count (flax's under ``jax.eval_shape``, the port's on the meta
-device: shapes only).
+device: shapes only), and the flax tree converts onto it with a strict
+load; so does every name of ``list_models()``, the same list in both
+packages.
 """
 
 import re
@@ -29,6 +31,8 @@ from endoscopy_tpu.ckpt.torch_import import import_torch_state as jax_import
 from endoscopy_tpu.config.loader import default_config as jax_default_config
 from endoscopy_tpu.config.loader import get_config as jax_get_config
 from endoscopy_tpu.models import build_model as jax_build_model
+from endoscopy_tpu.models.registry import create_backbone as jax_create_backbone
+from endoscopy_tpu.models.registry import list_models as jax_list_models
 from endoscopy_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
 from endoscopy_tpu.models.heads import ClassifierHead as JaxClassifierHead
 from endoscopy_tpu.models.heads import build_head as jax_build_head
@@ -36,9 +40,11 @@ from endoscopy_tpu.models.resnet import ResNet as JaxResNet
 from endoscopy_tpu_torch.ckpt import transfer
 from endoscopy_tpu_torch.ckpt.convert import from_jax_params, read_npz, write_npz
 from endoscopy_tpu_torch.config.loader import default_config, get_config
-from endoscopy_tpu_torch.models import build_model
+from endoscopy_tpu_torch.models import (build_model, create_backbone,
+                                        list_models)
 from endoscopy_tpu_torch.models.efficientnet import EfficientNet
 from endoscopy_tpu_torch.models.heads import ClassifierHead, build_head
+from endoscopy_tpu_torch.models.registry import _SIZED
 from endoscopy_tpu_torch.models.resnet import ResNet
 
 S = 32
@@ -126,12 +132,13 @@ def check_npz_roundtrip():
 
 
 def check_unported_models_point_to_roadmap():
-    """An unported backbone and the margin head raise; CoMatch's model,
-    ``ModelwEmb``, is built."""
-    for override in ({"MODEL": {"NAME": "densenet161"}},
-                     {"MODEL": {"MARGIN": "ArcFace"}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(default_config(override))
+    """The margin head raises and points at ROADMAP.md; an unknown backbone
+    raises, as the JAX registry does (every name of it is ported);
+    CoMatch's model, ``ModelwEmb``, is built."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_model(default_config({"MODEL": {"MARGIN": "ArcFace"}}))
+    with pytest.raises(ValueError, match="unknown model 'densenet169'"):
+        build_model(default_config({"MODEL": {"NAME": "densenet169"}}))
     comatch = build_model(default_config({"MODEL": {
         "NAME": "resnet_tiny", "TYPE_SEMI": "CoMatch"}}))
     assert type(comatch).__name__ == "ModelwEmb"
@@ -307,23 +314,62 @@ def check_pth_maps_match_jax():
 def check_every_preset_builds_with_jax_parameter_counts():
     """``build_model`` for every ``configs/*.yaml`` in the port (on the
     meta device: shapes only) has the JAX ``build_model``'s parameter
-    count at the config's ``IMG_SIZE``; each distinct flax model is traced
-    once."""
-    counts = {}
+    count at the config's ``IMG_SIZE``, and the flax tree of its shapes
+    (zeros) converts onto it with a strict load; so does every backbone of
+    ``list_models()`` (under a linear head), equal in both packages, at
+    224 px and, for the ones built for their side, at 112 px, where Swin
+    and SwinMLP refuse in both (an odd stage side to merge). Each distinct
+    flax model is traced once."""
+    traced = {}
+
+    def flax_zeros(jmodel, side):
+        if (jmodel, side) not in traced:
+            shapes = jax.eval_shape(jmodel.init, jax.random.key(0),
+                                    jnp.zeros((1, side, side, 3)))
+            traced[jmodel, side] = jax.tree.map(
+                lambda s: np.zeros(s.shape, np.float32), shapes)
+        return traced[jmodel, side]
+
+    def holds(port, variables, what):
+        n_flax = sum(a.size for a in jax.tree.leaves(variables["params"]))
+        n_port = sum(p.numel() for p in port.parameters())
+        assert n_port == n_flax, (what, n_port, n_flax)
+        port.load_state_dict(from_jax_params(
+            variables["params"], variables.get("batch_stats", {})),
+            strict=True, assign=True)
+
     paths = sorted((ROOT / "configs").glob("*.yaml"))
     assert len(paths) >= 21
     names = set()
     for path in paths:
         with torch.device("meta"):
             port = build_model(get_config(str(path)))
-        n_port = sum(p.numel() for p in port.parameters())
         jcfg = jax_get_config(str(path))
-        jmodel, side = jax_build_model(jcfg), int(jcfg.DATA.IMG_SIZE)
-        if (jmodel, side) not in counts:
-            shapes = jax.eval_shape(jmodel.init, jax.random.key(0),
-                                    jnp.zeros((1, side, side, 3)))
-            counts[jmodel, side] = sum(int(np.prod(s.shape)) for s in
-                                       jax.tree.leaves(shapes["params"]))
-        assert n_port == counts[jmodel, side], (path.name, n_port)
+        holds(port, flax_zeros(jax_build_model(jcfg),
+                               int(jcfg.DATA.IMG_SIZE)), path.name)
         names.add(jcfg.MODEL.NAME)
     assert {"efficientnet_b1", "resnet50sasa", "conformer"} <= names
+    assert list_models() == jax_list_models()
+    for name in list_models():
+        if name == "conformer":  # its presets above
+            continue
+        for side in (224, 112) if name in _SIZED else (224,):
+            jmodel = jax_create_backbone(name, jnp.float32)
+            if name.startswith("swin") and side == 112:
+                with pytest.raises(ValueError, match="even side"):
+                    create_backbone(name, side)
+                with pytest.raises(TypeError):
+                    flax_zeros(jmodel, side)
+                continue
+            with torch.device("meta"):
+                bb = create_backbone(name, side)
+                port = ClassifierHead(bb, build_head(bb.num_features,
+                                                     NUM_CLASSES))
+            v = flax_zeros(jmodel, side)
+            head = {"fc": {"kernel": np.zeros((bb.num_features, NUM_CLASSES),
+                                              np.float32),
+                           "bias": np.zeros(NUM_CLASSES, np.float32)}}
+            holds(port, {"params": {"backbone": v["params"], "head": head},
+                         "batch_stats": {"backbone": v.get("batch_stats",
+                                                           {})}},
+                  (name, side))

@@ -2,7 +2,7 @@
 
 The import check runs in a fresh interpreter, so what the test process
 itself has imported cannot hide a leak. It covers every module of the
-package and ``tests/torch_port_checks/path_{c,...,j}.py``, which
+package and ``tests/torch_port_checks/path_{c,...,l}.py``, which
 ``chip_smoke.py`` runs on the card's machine: no JAX and nothing of
 ``endoscopy_tpu``, and none of what that machine lacks (pandas, cv2, PIL,
 PyYAML) at import time. ``chip_smoke.py`` itself is read, not run: no
@@ -54,7 +54,7 @@ NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "endoscopy_tpu",
 
 
 def check_package_imports_no_jax():
-    mods = _modules() + [f"torch_port_checks.path_{p}" for p in "cdefghij"]
+    mods = _modules() + [f"torch_port_checks.path_{p}" for p in "cdefghijkl"]
     assert {"endoscopy_tpu_torch.ops.randaugment_kernel",
             "endoscopy_tpu_torch.cli.learn",
             "endoscopy_tpu_torch.ckpt.io",

@@ -61,7 +61,8 @@ def train_config(base: dict, **sections):
 def seeded_model(config, seed: int, head_std: float = 1e-3,
                  residual_gamma=None):
     """The config's model with random weights from ``seed``: He-normal
-    convolutions (fan out) and a head of std ``head_std`` (small, so the
+    convolutions (fan out) and every dense layer (the head; a
+    transformer's too) of std ``head_std`` with zero biases (small, so the
     softmax is not saturated). ``residual_gamma`` sets the scale of every
     block's last BN, as a zero-init residual does with 0: a small value
     keeps the random network out of its chaotic regime, where float32
@@ -75,7 +76,8 @@ def seeded_model(config, seed: int, head_std: float = 1e-3,
                 m.weight.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=g)
             elif isinstance(m, nn.Linear):
                 m.weight.normal_(0.0, head_std, generator=g)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif residual_gamma is not None and name.endswith(".bn3"):
                 m.weight.fill_(residual_gamma)
     return model

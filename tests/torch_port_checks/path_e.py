@@ -119,11 +119,12 @@ class _Rows:
             yield self.images[idx], self.manifest.targets[idx]
 
 
-def step_config(base: dict, triplet: bool, img: int = 112, **model):
-    """E3's config: ``base``'s fields at B=4, ``img`` px, float32, with
-    ``model``'s fields over them."""
+def step_config(base: dict, triplet: bool, img: int = 112, batch: int = 4,
+                **model):
+    """E3's config: ``base``'s fields at B=``batch`` (4), ``img`` px,
+    float32, with ``model``'s fields over them."""
     return path_c.train_config(
-        base, DATA={"IMG_SIZE": img, "BATCH_SIZE": 4},
+        base, DATA={"IMG_SIZE": img, "BATCH_SIZE": batch},
         MODEL={"IS_TRIPLET": triplet, **model},
         TRAIN={"DTYPE": "float32", "GRAD_ACCUM": 1})
 

@@ -87,7 +87,6 @@ from endoscopy_tpu_torch.cli import learn
 from endoscopy_tpu_torch.config.loader import default_config, get_config
 from endoscopy_tpu_torch.models import build_model, create_backbone
 from endoscopy_tpu_torch.models.conformer import Conformer
-from endoscopy_tpu_torch.serve import export
 from endoscopy_tpu_torch.train.semiformer import SemiFormer
 from endoscopy_tpu_torch.train.supervised import SupLearning
 from torch_port_checks import path_c, path_d, path_g
@@ -248,7 +247,7 @@ def check_conformer_ti_converts_strictly():
     """Conformer-Ti's flax tree (shapes from ``jax.eval_shape``) converts
     onto ``build_model``'s Conformer with a strict load: every name and
     shape, 22,886,556 parameters in both; ``create_backbone`` gives the
-    same module tree. Serving it is refused (not ported yet)."""
+    same module tree (``serve.py`` serves its conv head)."""
     shapes = jax.eval_shape(lambda: JaxConformer(
         num_classes=6, dtype=jnp.float32).init(
             jax.random.key(0), jnp.zeros((1, 32, 32, 3)), train=False))
@@ -264,9 +263,6 @@ def check_conformer_ti_converts_strictly():
     assert n_flax == sum(p.numel() for p in model.parameters()) == TI_PARAMS
     assert isinstance(alias, Conformer)
     assert list(alias.state_dict()) == list(model.state_dict())
-    cfg = default_config({"MODEL": {"NAME": "conformer", "NUM_CLASSES": 6}})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        export.export_model(cfg, model.state_dict(), "unused.pt")
 
 
 def check_fresh_weights_follow_flax_initializer():

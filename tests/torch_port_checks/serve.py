@@ -8,7 +8,12 @@ amplify that). Weight-only int8: the port's int8 kernels and scales equal
 ``quantize_tree``'s (transposed) exactly, the dequantized weights equal in
 float32 and bf16, the other tensors are bit-identical; the int8 artifact's
 probabilities match the JAX int8 forward at 1e-5. ``cli/infer.py``'s CSV
-equals the JAX CLI's: ``pred`` exactly, ``max_prob`` at 1e-5.
+equals the JAX CLI's: ``pred`` exactly, ``max_prob`` at 1e-5. A backbone
+built for its side (the SASA ResNet-50 at 112 px, the
+``kaggle_semisupervised_real_5`` preset) and a CoMatch ``ModelwEmb``
+round-trip through their artifacts equal to a direct eval forward; the
+tiny Conformer's artifact serves its conv head, at 1e-5 of the JAX
+``make_infer_fn`` on the same weights.
 """
 
 import contextlib
@@ -37,10 +42,13 @@ from endoscopy_tpu_torch.cli import infer as infer_cli
 from endoscopy_tpu_torch.models import build_model
 from endoscopy_tpu_torch.serve import quantize
 from endoscopy_tpu_torch.config.loader import default_config
-from endoscopy_tpu_torch.serve.export import export_model, load_exported
+from endoscopy_tpu_torch.serve.export import (export_model, load_exported,
+                                               make_infer_fn)
 from endoscopy_tpu_torch.serve.server import make_server
 
+from torch_port_checks import semiformer as sf
 from torch_port_checks.models import NUM_CLASSES, flax_tiny
+from torch_port_checks.train import _jax_config
 
 IMG = 24
 CANON = int(IMG * 1.2)
@@ -348,3 +356,65 @@ def check_infer_cli_matches_jax():
             infer_cli.main(["--model", exported()[0], "--images",
                             str(csv_path), "--out", str(tmp_path / "x.csv"),
                             "--size", str(CANON + 1), "--device", "cpu"])
+
+
+def check_sized_backbone_artifact_loads():
+    """``resnet50sasa`` exported at 112 px (real_5's side; its SASA
+    encodings are sized for it) loads back and serves the probabilities of
+    a direct eval forward, exactly (float32, the same CPU computation)."""
+    cfg = default_config({"DATA": {"IMG_SIZE": 112},
+                          "MODEL": {"NAME": "resnet50sasa", "NUM_CLASSES": 6},
+                          "TRAIN": {"DTYPE": "float32"}})
+    torch.manual_seed(0)
+    model = build_model(cfg)
+    imgs = np.random.default_rng(11).integers(0, 256, (2, 134, 134, 3),
+                                              dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "sasa.pt")
+        assert export_model(cfg, model.state_dict(), path) == (134, 6)
+        infer = load_exported(path, device="cpu")
+    want = make_infer_fn(model, 112, "float32", device="cpu")(imgs)
+    np.testing.assert_array_equal(infer(imgs), want)
+
+
+def check_embedding_model_artifact_loads():
+    """A CoMatch (``ModelwEmb``) model's artifact, its ``TYPE_SEMI`` and
+    ``LOW_DIM`` in the artifact, loads back as ``ModelwEmb`` and serves
+    its logits' probabilities, exactly those of a direct eval forward
+    (float32)."""
+    cfg = default_config({"DATA": {"IMG_SIZE": IMG},
+                          "MODEL": {"NAME": "resnet_tiny",
+                                    "NUM_CLASSES": NUM_CLASSES,
+                                    "TYPE_SEMI": "CoMatch", "LOW_DIM": 16},
+                          "TRAIN": {"DTYPE": "float32"}})
+    torch.manual_seed(1)
+    model = build_model(cfg)
+    assert type(model).__name__ == "ModelwEmb"
+    imgs = np.random.default_rng(13).integers(0, 256, (3, CANON, CANON, 3),
+                                              dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "emb.pt")
+        export_model(cfg, model.state_dict(), path)
+        infer = load_exported(path, device="cpu")
+    want = make_infer_fn(model, IMG, "float32", device="cpu")(imgs)
+    np.testing.assert_array_equal(infer(imgs), want)
+
+
+def check_conformer_artifact_serves_conv_head():
+    """The tiny Conformer (its ``MODEL`` overrides in the artifact) serves
+    ``softmax(conv head)``, at 1e-5 of the JAX ``make_infer_fn`` on the
+    same weights (float32)."""
+    variables = sf._fresh_variables()
+    params, stats = variables["params"], variables["batch_stats"]
+    jmodel = sf.jax_build_model(_jax_config(sf._overrides()))
+    ref = jax_make_infer_fn(jmodel, params, stats, sf.IMG, jnp.float32)
+    cfg = default_config(sf._overrides())
+    imgs = np.random.default_rng(12).integers(
+        0, 256, (3, sf.CANON, sf.CANON, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "conformer.pt")
+        export_model(cfg, from_jax_params(params, stats), path)
+        assert torch.load(path, weights_only=True)["model"]["EMBED_DIM"] == 24
+        infer = load_exported(path, device="cpu")
+    np.testing.assert_allclose(infer(imgs), np.asarray(ref(jnp.asarray(imgs))),
+                               rtol=0, atol=1e-5)
