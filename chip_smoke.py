@@ -258,6 +258,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    supervised steps (32 images at 224 px) with a finite loss, and the
    artifact through ``load_exported`` equal to a direct eval forward; a
    line a model with its step ms and peak memory. No kernel runs on it.
+17. path N: data parallelism (``endoscopy_tpu_torch/parallel/``), each
+   part in ``torchrun`` subprocesses (``python -m torch.distributed.run
+   --standalone``, this script with ``--path-n-worker``); a non-zero exit
+   of any rank fails the run. The machine has one card, so a group of one
+   over NCCL and two gloo ranks sharing the card. N1, a group of one over
+   NCCL on ``cuda:0``: for seeds 0-2 path C part 1's float32 step (B=4,
+   MU=1, THRES in the widest gap of the card's weak max-probabilities)
+   with every collective issued (the synced BN, the gradient all-reduce,
+   the broadcast), against the no-group step on the card at path C part
+   1's float32 bounds; then real_3_1's step at full width (``fixmatch_full``:
+   3 warm-up and 12 timed steps, the kernel once a step, crop-fused, 0.0
+   from its plain version on the step's input), printed beside path C part
+   2's no-group step of this run. N2: ``run_config`` in the group on path
+   D's kind of seeded images (64 labeled, 448 unlabeled, 64 valid) at
+   real_3_1's width, 2 epochs of 3 steps with an evaluation and a
+   checkpoint each: one launch a step, ``epoch_1``, ``epoch_2`` written by
+   rank 0 alone, a fresh trainer's resume bit-identical. N3, two ranks over
+   gloo on the one card (NCCL refuses two ranks on one card): N1's three
+   float32 steps, each rank on its half of the batch, at the same bounds.
+   N3 starts before path M and runs beside it (it times nothing; M's two
+   timed steps a model are a spread), N1 and N2 after M, alone.
 
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line and ``{"ok": true, "device": {...}}``.
@@ -266,12 +287,14 @@ JSON line and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -338,6 +361,11 @@ J1_Q_SCALE = 0.1
 # bf16 supervised steps
 M_IMAGES, M_EVAL_TOL = 2, 1e-4
 M_WARMUP_STEPS, M_TIMED_STEPS = 1, 2
+# path N: data parallelism under torchrun on the one card. N2's seeded
+# images (labeled, unlabeled, valid) and cuts; every part's time limit
+N2_SIZES = (64, 448, 64)
+N2_CUTS = {"EPOCHS": 2, "EVAL_STEP": 3, "FREQ_EVAL": 1, "EMA_DECAY": 0.9}
+N_TIMEOUT_S = 420
 
 
 # 64 concurrent raw requests from one client process: argv = port, .npy
@@ -1234,8 +1262,20 @@ def _eval_timed(trainer):
     return loss, metric, start.elapsed_time(end)
 
 
-def phase_learn(seed: int, out_dir: Path):
-    """Path D: ``cli/learn.py`` on the card, D1-D3."""
+def learn_data(seed: int):
+    """Path D's seeded images of both stages, ``(data1, data2, seconds
+    each)``: made with numpy on a host thread while the kernel builds."""
+    cfg1, cfg2 = path_d.stage_configs("", "")
+    t0 = time.perf_counter()
+    data1 = path_d.synthetic_data(cfg1, path_d.STAGE1_SIZES, seed)
+    t1 = time.perf_counter()
+    data2 = path_d.synthetic_data(cfg2, path_d.STAGE2_SIZES, seed + 1)
+    return data1, data2, (t1 - t0, time.perf_counter() - t1)
+
+
+def phase_learn(seed: int, out_dir: Path, made):
+    """Path D: ``cli/learn.py`` on the card, D1-D3, on ``learn_data``'s
+    images."""
     import shutil
     from unittest import mock
 
@@ -1249,11 +1289,10 @@ def phase_learn(seed: int, out_dir: Path):
     shutil.rmtree(out_dir, ignore_errors=True)
     log_dir = out_dir / "log"
     cfg1, cfg2 = path_d.stage_configs(str(out_dir / "ckpt"), str(log_dir))
-    t0 = time.perf_counter()
-    data1 = path_d.synthetic_data(cfg1, path_d.STAGE1_SIZES, seed)
+    data1, data2, (gen1_s, gen2_s) = made
     print(f"path D: stage 1 data {path_d.STAGE1_SIZES} (labeled, unlabeled, "
-          f"valid) at {data1[1].size} px made in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"valid) at {data1[1].size} px made in {gen1_s:.2f} s (on a host "
+          "thread while the kernel built)", flush=True)
 
     sides = []
     kernel = views.randaugment_mc
@@ -1397,9 +1436,6 @@ def phase_learn(seed: int, out_dir: Path):
         fail("path D2: a resume at the final epoch trained")
 
     # D3: the 224 px stage on stage 1's final weights
-    t0 = time.perf_counter()
-    data2 = path_d.synthetic_data(cfg2, path_d.STAGE2_SIZES, seed + 1)
-    gen2_s = time.perf_counter() - t0
     carried = {k: v.detach().clone() for k, v in model.state_dict().items()}
     trainer3 = learn.prepare_trainer(cfg2, model=model,
                                      carry_state=model.state_dict(),
@@ -3372,10 +3408,270 @@ def phase_serve_sized(seed: int, out_dir: Path):
     return out
 
 
+def n_step_config():
+    """Path N's small step: path C part 1's (real_3_1's ResNet-50 at 112
+    px, B=4, MU=1), in float32."""
+    return path_c.train_config(path_c.REAL_3_1,
+                               DATA={"BATCH_SIZE": 4, "MU": 1},
+                               TRAIN={"DTYPE": "float32"})
+
+
+def n_step(seed: int, thres: float, model):
+    """One SGD step of ``model`` (path C part 1's seeded state) on the card
+    (``path_c.step_once``: in a group each rank takes its rows)."""
+    config = n_step_config()
+    config.TRAIN.THRES = thres
+    batch = path_c.canonical_batches(config, seed, 1)[0]
+    return path_c.step_once(config, model, batch, "cuda", seed)
+
+
+def n_thres(seed: int, model) -> float:
+    """THRES in the widest gap between the four weak max-probabilities of
+    the card's float32 forward, one to three rows above it."""
+    config = n_step_config()
+    batch = path_c.canonical_batches(config, seed, 1)[0]
+    p = weak_max_probs(config, model, batch, "cuda", seed).sort(
+        descending=True).values
+    k = max((1, 2, 3), key=lambda k: float(p[k - 1] - p[k]))
+    return float(p[k - 1] + p[k]) / 2
+
+
+def n_model(path: Path):
+    """Path C part 1's seeded model, as ``start_parallel`` saved it: built
+    without initializing (on the meta device), its tensors assigned."""
+    import torch
+
+    from endoscopy_tpu_torch.models import build_model
+
+    with torch.device("meta"):
+        model = build_model(n_step_config())
+    model.load_state_dict(torch.load(path, weights_only=True), assign=True)
+    return model
+
+
+def n2_learn(seed: int, out_dir: Path):
+    """Path N2 in a group: ``run_config`` on path D's kind of seeded images
+    at real_3_1's width, cut to ``N2_CUTS``, an evaluation and a checkpoint
+    an epoch; then a fresh trainer resumes the last one."""
+    import shutil
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from endoscopy_tpu_torch.ckpt import io as ckpt_io
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = path_c.train_config(path_c.REAL_3_1, TRAIN={
+        **N2_CUTS, "SAVE_CP": str(out_dir / "ckpt")})
+    data = path_d.synthetic_data(cfg, N2_SIZES, seed)
+    writes = []
+    replace = ckpt_io._durable_replace
+
+    def recording(path, write):
+        writes.append((dist.get_rank(), Path(path).parent.name,
+                       Path(path).name))
+        return replace(path, write)
+
+    rk.randaugment_mc.launches = 0
+    torch.manual_seed(seed)  # the model's own initialization, seeded
+    t0 = time.perf_counter()
+    with mock.patch.object(ckpt_io, "_durable_replace", recording):
+        trainer, _ = learn.run_config(cfg, device="cuda", data=data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = rk.randaugment_mc.launches
+    steps = int(cfg.TRAIN.EPOCHS) * int(cfg.TRAIN.EVAL_STEP)
+    saved = sorted(p.name for p in (out_dir / "ckpt").iterdir())
+    resume = path_c.train_config(path_c.REAL_3_1, TRAIN={
+        **N2_CUTS, "SAVE_CP": str(out_dir / "ckpt")})
+    resume.MODEL.PRE_TRAIN_RESUME = ckpt_io.latest_checkpoint(
+        cfg.TRAIN.SAVE_CP)
+    trainer2 = learn.prepare_trainer(resume, device="cuda", data=data)
+    diff = _state_diff(trainer.state.state_dict(),
+                       trainer2.state.state_dict())
+    print(f"path N2: run_config in a group of {dist.get_world_size()} "
+          f"({dist.get_backend()}), {steps} steps of "
+          f"{trainer._images_per_step()} images in {fit_s:.2f} s; "
+          f"randaugment_mc launches {launches}; checkpoints {saved}, files "
+          f"written (rank, checkpoint, file) {writes}; the resume of "
+          f"{saved[-1]}: tensors that differ {len(diff)} {diff[:4]}, "
+          f"epoch_start {trainer2.epoch_start}", flush=True)
+    if launches != steps:
+        fail(f"path N2: {launches} kernel launches in {steps} steps")
+    if saved != [f"epoch_{e}" for e in range(1, int(cfg.TRAIN.EPOCHS) + 1)]:
+        fail(f"path N2: checkpoints {saved}")
+    if {w[0] for w in writes} != {0} or len(writes) != 2 * len(saved):
+        fail(f"path N2: checkpoint files written {writes}")
+    if diff or trainer2.epoch_start != int(cfg.TRAIN.EPOCHS):
+        fail("path N2: the resumed trainer differs from the saved one")
+    return {"launches": launches, "steps": steps, "checkpoints": saved,
+            "writes": writes, "fit_s": fit_s}
+
+
+def path_n_worker(part: str, out_dir: Path, seed: int) -> int:
+    """One rank of path N under ``torchrun``: ``n12`` joins the group from
+    the environment (``init_from_env``: NCCL on ``cuda:LOCAL_RANK``) and
+    runs N1 and N2; ``n3`` joins two ranks over gloo on the one card (NCCL
+    refuses two ranks on one card) and takes N1's small steps. Rank 0
+    writes the results to ``out_dir/<part>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from endoscopy_tpu_torch.parallel import init_from_env, leave_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    if part == "n3":
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo")
+    else:
+        init_from_env()
+    try:
+        t1 = time.perf_counter()
+        thres = json.loads((out_dir / "n_args.json").read_text())
+        res = {"world": dist.get_world_size(), "backend": dist.get_backend(),
+               "steps": {int(s): n_step(int(s), t,
+                                        n_model(out_dir / f"model{s}.pt"))
+                         for s, t in thres.items()}}
+        print(f"path N ({part}), rank {dist.get_rank()}: joined the group "
+              f"in {t1 - t0:.1f} s, {len(thres)} float32 steps in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        if part == "n12":
+            res["n1"] = fixmatch_full(path_c.REAL_3_1, "N1", seed)
+            res["n2"] = n2_learn(seed, out_dir / "n2")
+        if dist.get_rank() == 0:
+            torch.save(res, out_dir / f"{part}.pt")
+    finally:
+        leave_group()
+    return 0
+
+
+def torchrun(nproc: int, part: str, out_dir: Path, seed: int):
+    """Start ``chip_smoke.py --path-n-worker part`` in ``nproc`` processes
+    under ``torch.distributed.run``, its output to ``out_dir/<part>.log``;
+    :func:`torchrun_result` waits for it."""
+    import os
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(Path(__file__).resolve()),
+           "--path-n-worker", part, "--out", str(out_dir), "--seed",
+           str(seed)]
+    # torchrun gives each process one host thread unless told otherwise
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(1, 8 // nproc)))
+    with open(out_dir / f"{part}.log", "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+    atexit.register(_stop, proc)  # a failure elsewhere ends the run
+    return proc, part, nproc, out_dir, time.perf_counter()
+
+
+def _stop(proc) -> None:
+    """Kill ``proc``'s process group (its ranks) if it still runs."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def torchrun_result(run):
+    """The results of a :func:`torchrun` after printing its output; fails
+    unless every rank exits 0. Its process group is killed at
+    ``N_TIMEOUT_S`` after the start."""
+    import torch
+
+    proc, part, nproc, out_dir, t0 = run
+    try:
+        proc.wait(timeout=max(1.0, N_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        _stop(proc)
+    print((out_dir / f"{part}.log").read_text().rstrip(), flush=True)
+    print(f"path N ({part}): torchrun --nproc_per_node={nproc} exited "
+          f"{proc.returncode} {time.perf_counter() - t0:.1f} s after its "
+          "start", flush=True)
+    if proc.returncode != 0:
+        fail(f"path N ({part}): a rank failed or did not end in "
+             f"{N_TIMEOUT_S} s")
+    return torch.load(out_dir / f"{part}.pt", weights_only=False)
+
+
+def start_parallel(seed: int, out_dir: Path):
+    """Path N's start: the no-group float32 steps on the card and the
+    ranks' seeded models, then N3's two gloo ranks, which run beside path
+    M (they time nothing; M's two timed steps a model are a spread)."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    thres, refs = {}, {}
+    for s in range(seed, seed + PART1_SEEDS):
+        model = path_c.seeded_model(n_step_config(), s, path_c.HEAD_STD,
+                                    PART1_RESIDUAL_GAMMA)
+        torch.save(model.state_dict(), out_dir / f"model{s}.pt")
+        thres[s] = n_thres(s, model)
+        refs[s] = n_step(s, thres[s], model)
+    (out_dir / "n_args.json").write_text(json.dumps(thres))
+    return thres, refs, torchrun(2, "n3", out_dir, seed)
+
+
+def phase_parallel(seed: int, out_dir: Path, c_row: dict, started):
+    """Path N: the FixMatch step in a process group on the card. N1's
+    float32 steps in a group of one over NCCL and in two gloo ranks (N3)
+    against the no-group step on the card, at path C part 1's bounds; N1
+    at full width beside path C part 2; N2 ``run_config`` and its
+    resume."""
+    thres, refs, n3_run = started
+    seeds = sorted(refs)
+    n3 = torchrun_result(n3_run)
+    n12 = torchrun_result(torchrun(1, "n12", out_dir, seed))
+    out, failures = {"thres": thres}, []
+    for name, res in (("N1", n12), ("N3", n3)):
+        for s in seeds:
+            same_mask, rel, l2, worst = _step_errors(res["steps"][s], refs[s])
+            bound = 3 * c_row["correctness"][s]["cpu_f32_vs_f64_l2"] + 1e-3
+            print(f"path {name}, seed {s}: float32 step in a group of "
+                  f"{res['world']} ({res['backend']}) vs the no-group step "
+                  f"on the card: [loss, lx, lu, mask_mean] "
+                  f"{res['steps'][s][0]} vs {refs[s][0]}; worst relative loss "
+                  f"error {rel:.3e} (bound {TRAIN_TOL_F32_LOSS}); SGD updates "
+                  f"relative L2 error {l2:.3e} (bound {bound:.3e}), worst "
+                  f"tensor {worst:.3e}", flush=True)
+            if not (same_mask and rel <= TRAIN_TOL_F32_LOSS and l2 <= bound):
+                failures.append(f"{name} seed {s}")
+            out[f"{name.lower()}_seed{s}"] = {"loss_rel_err": rel,
+                                              "update_l2_err": l2,
+                                              "bound": bound}
+    n1, c = n12["n1"], c_row["full"]
+    print(f"path N1 full width, in a group of 1 (nccl) beside path C part 2 "
+          f"(no group) of this call: step ms median {n1['step_ms_median']:.3f} "
+          f"vs {c['step_ms_median']:.3f} (the collectives and the synced BN: "
+          f"{n1['step_ms_median'] - c['step_ms_median']:+.3f} ms); images/s "
+          f"{n1['images_per_s']:.1f} vs {c['images_per_s']:.1f}; FLOP share "
+          f"{n1['flop_share']:.4f} vs {c['flop_share']:.4f}; peak memory "
+          f"{n1['peak_bytes']} vs {c['peak_bytes']} B", flush=True)
+    if failures:
+        fail("path N: the step in a group differs from the no-group step: "
+             + ", ".join(failures))
+    out.update(n1=n1, n2=n12["n2"], c_step_ms_median=c["step_ms_median"])
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--path-n-worker", choices=("n12", "n3"),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--out", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.path_n_worker:
+        return path_n_worker(args.path_n_worker, args.out, args.seed)
 
     import shutil
 
@@ -3395,9 +3691,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    ext = rk.build(verbose=True)
-    print(f"built the RandAugment kernel in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    with ThreadPoolExecutor(1) as pool:  # path D's images, beside the build
+        made = pool.submit(learn_data, args.seed)
+        ext = rk.build(verbose=True)
+        print(f"built the RandAugment kernel in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        made = made.result()
     for side in (IMG, IMG_C):  # paths A-B, path C
         cluster, smem, active, regs, local = ext.randaugment_mc_info(side,
                                                                      True)
@@ -3428,7 +3727,7 @@ def main(argv=None) -> int:
                       "accum": phase_train_accum(args.seed),
                       "freeze": phase_train_freeze(args.seed)})
     t0 = time.perf_counter()  # D's images feed E, G and H
-    data2, rows["D"] = phase_learn(args.seed, scratch / "path_d")
+    data2, rows["D"] = phase_learn(args.seed, scratch / "path_d", made)
     print(f"path D took {time.perf_counter() - t0:.1f} s", flush=True)
     print("path D: " + json.dumps(rows["D"]), flush=True)
     run("E", phase_supervised, args.seed, scratch / "path_e", data2)
@@ -3441,12 +3740,15 @@ def main(argv=None) -> int:
     run("J", phase_real5, args.seed)
     run("K", phase_densenet, args.seed)
     run("L", phase_swin, args.seed)
+    started = start_parallel(args.seed, scratch / "path_n")
     run("M", phase_zoo, args.seed, scratch / "path_m")
+    run("N", phase_parallel, args.seed, scratch / "path_n", rows["C"],
+        started)
 
     train, learn_row, sup_row = rows["C"]["full"], rows["D"], rows["E"]
     f2, f3 = rows["F"]["f2"], rows["F"]["f3"]
     g2, g3 = rows["G"]["g2"], rows["G"]["g3"]
-    j2, k2 = rows["J"]["j2"], rows["K"]["k2"]
+    j2, k2, n1 = rows["J"]["j2"], rows["K"]["k2"], rows["N"]["n1"]
 
     def fused(r, side):
         return {"launches_per_step": r["launches_per_step"],
@@ -3502,6 +3804,8 @@ def main(argv=None) -> int:
         "path_k": fused(k2, path_k.REAL_3_1_DENSENET["DATA"]["IMG_SIZE"]),
         "path_l": {"launches": rows["L"]["launches"]},
         "path_m": {"launches": rows["M"]["launches"]},
+        "path_n": {**fused(n1, IMG_C), "n2_launches": rows["N"]["n2"][
+            "launches"], "n2_steps": rows["N"]["n2"]["steps"]},
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,6 +20,11 @@ a step makes no host round trip. The supervised trainer mixes each
 microbatch with its own flip, as the JAX step mixes inside its per-micro
 loss, so under ``TRAIN.GRAD_ACCUM`` an image is paired within its
 microbatch.
+
+In a process group the flipped batch is the global batch's: rank ``r``'s
+partner rows are rank ``P - 1 - r``'s, reversed, exchanged with it
+(``parallel/sharding.py::flip_rows``); every rank draws the same ``lam``
+and box from its generator, which the ranks seed alike.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from endoscopy_tpu_torch.parallel.sharding import flip_rows
 
 
 def _gamma(alpha: float, generator: torch.Generator, candidates: int = 16
@@ -113,8 +120,8 @@ def mixup_cutmix(x: torch.Tensor, targets: torch.Tensor, num_classes: int,
         draws = sample_mixup_draws(generator, h, w, mixup_alpha, cutmix_alpha)
     d = {k: torch.as_tensor(v, device=x.device) for k, v in draws.items()}
     y1 = smooth_one_hot(targets.to(x.device), num_classes, label_smoothing)
-    y2 = y1.flip(0)
-    x2 = x.flip(0)
+    y2 = flip_rows(y1)
+    x2 = flip_rows(x)
 
     use_mix = d["apply"] < prob
     use_cutmix = torch.as_tensor(

@@ -3,7 +3,11 @@
 All take a canonical uint8 NHWC batch and return normalized NHWC tensors
 at IMG_SIZE in ``dtype``, on ``device`` (``cuda`` unless the caller asks
 for ``cpu``). Every random draw can be passed in; what is not passed comes
-from the caller's ``torch.Generator``.
+from the caller's ``torch.Generator``, drawn by :func:`fixmatch_draws`,
+:func:`labeled_draws` or :func:`comatch_draws` in the one order each
+view draws in. A trainer in a process group draws there for the global
+batch and passes its rows' draws in, so each image gets the pixels of the
+1-process run.
 
 FixMatch's strong view fuses its reflect-pad RandomCrop into the
 RandAugment kernel: the view hands it the un-padded flipped image, the crop
@@ -67,6 +71,28 @@ def eval_view(batch_u8, img_size: int, dtype=torch.float32,
     return normalize(_center_float(batch_u8, img_size, dtype, device), dtype)
 
 
+def _fill_draws(given: dict, generator, draw) -> dict:
+    """``given`` with each ``None`` replaced by ``draw(generator)``'s
+    value; raises without a generator when one is missing."""
+    if all(v is not None for v in given.values()):
+        return given
+    if generator is None:
+        raise ValueError("pass a torch.Generator or every draw explicitly")
+    drawn = draw(generator)
+    return {k: drawn[k] if v is None else v for k, v in given.items()}
+
+
+def fixmatch_draws(generator: torch.Generator, b: int, img_size: int):
+    """:func:`fixmatch_views`' draws for ``b`` images: ``flips``, ``tops``,
+    ``lefts``, ``pi``, ``pf``."""
+    g = generator
+    flips = torch.rand(b, generator=g, device=g.device) < 0.5
+    tops, lefts = ops.sample_crop_offsets(g, b, 2 * int(img_size * 0.125))
+    pi, pf = sample_randaugment_params(g, b, img_size, img_size)
+    return {"flips": flips, "tops": tops, "lefts": lefts, "pi": pi,
+            "pf": pf}
+
+
 def fixmatch_views(batch_u8, img_size: int, dtype=torch.float32,
                    generator: torch.Generator | None = None, *, device=None,
                    flips=None, tops=None, lefts=None, pi=None, pf=None):
@@ -83,15 +109,10 @@ def fixmatch_views(batch_u8, img_size: int, dtype=torch.float32,
     padding = int(img_size * 0.125)
     if (tops is None) != (lefts is None) or (pi is None) != (pf is None):
         raise ValueError("pass tops with lefts and pi with pf")
-    if generator is None and any(v is None for v in (flips, tops, pi)):
-        raise ValueError("pass a torch.Generator or every draw explicitly")
-    if flips is None:
-        flips = torch.rand(b, generator=generator,
-                           device=generator.device) < 0.5
-    if tops is None:
-        tops, lefts = ops.sample_crop_offsets(generator, b, 2 * padding)
-    if pi is None:
-        pi, pf = sample_randaugment_params(generator, b, img_size, img_size)
+    given = {"flips": flips, "tops": tops, "lefts": lefts, "pi": pi,
+             "pf": pf}
+    flips, tops, lefts, pi, pf = _fill_draws(
+        given, generator, lambda g: fixmatch_draws(g, b, img_size)).values()
 
     dev = weak.device
     strong = _flip_where(weak, flips)
@@ -123,6 +144,20 @@ def _color_jitter(x: torch.Tensor, factors: torch.Tensor,
     return x
 
 
+def labeled_draws(generator: torch.Generator, b: int):
+    """:func:`labeled_train_view`'s draws for ``b`` images: ``hflips``,
+    ``vflips``, ``angles``, ``factors``, ``orders``."""
+    g, gdev = generator, generator.device
+    hflips = torch.rand(b, generator=g, device=gdev) < 0.3
+    vflips = torch.rand(b, generator=g, device=gdev) < 0.3
+    angles = torch.rand(b, generator=g, device=gdev) * 40.0 - 20.0
+    factors = 0.8 + 0.4 * torch.rand((b, 3), generator=g, device=gdev)
+    orders = torch.argsort(torch.rand((b, 4), generator=g, device=gdev),
+                           dim=1)
+    return {"hflips": hflips, "vflips": vflips, "angles": angles,
+            "factors": factors, "orders": orders}
+
+
 def labeled_train_view(batch_u8, img_size: int, dtype=torch.float32,
                        generator: torch.Generator | None = None, *,
                        device=None, hflips=None, vflips=None, angles=None,
@@ -139,22 +174,10 @@ def labeled_train_view(batch_u8, img_size: int, dtype=torch.float32,
     """
     x = _u8_on_device(batch_u8, device)
     b = x.shape[0]
-    draws = (hflips, vflips, angles, factors, orders)
-    if generator is None and any(v is None for v in draws):
-        raise ValueError("pass a torch.Generator or every draw explicitly")
-    g = generator
-    gdev = None if g is None else g.device
-    if hflips is None:
-        hflips = torch.rand(b, generator=g, device=gdev) < 0.3
-    if vflips is None:
-        vflips = torch.rand(b, generator=g, device=gdev) < 0.3
-    if angles is None:
-        angles = torch.rand(b, generator=g, device=gdev) * 40.0 - 20.0
-    if factors is None:
-        factors = 0.8 + 0.4 * torch.rand((b, 3), generator=g, device=gdev)
-    if orders is None:
-        orders = torch.argsort(torch.rand((b, 4), generator=g, device=gdev),
-                               dim=1)
+    given = {"hflips": hflips, "vflips": vflips, "angles": angles,
+             "factors": factors, "orders": orders}
+    d = _fill_draws(given, generator, lambda g: labeled_draws(g, b))
+    hflips, vflips, angles, factors, orders = d.values()
 
     return normalize(_labeled_pixels(x.to(dtype), img_size, hflips, vflips,
                                      angles, factors, orders), dtype)
@@ -169,6 +192,22 @@ def _labeled_pixels(x: torch.Tensor, img_size: int, hflips, vflips, angles,
     x = _center(ops.rotate(x, torch.as_tensor(angles)), img_size)
     return _color_jitter(x, torch.as_tensor(factors).to(dev, x.dtype),
                          torch.as_tensor(orders, device=dev))
+
+
+def comatch_draws(generator: torch.Generator, b: int, img_size: int):
+    """:func:`comatch_views`' draws for ``b`` images, in its order."""
+    g, gdev = generator, generator.device
+    d = {"weak_flips": torch.rand(b, generator=g, device=gdev) < 0.5,
+         "strong0_flips": torch.rand(b, generator=g, device=gdev) < 0.5}
+    d["pi"], d["pf"] = sample_randaugment_params(g, b, img_size, img_size)
+    d["jitters"] = torch.rand(b, generator=g, device=gdev) < 0.8
+    u = torch.rand((b, 4), generator=g, device=gdev)
+    d["factors"] = torch.cat([0.6 + 0.8 * u[:, :3], 0.2 * u[:, 3:] - 0.1], 1)
+    d["orders"] = torch.argsort(torch.rand((b, 4), generator=g, device=gdev),
+                                dim=1)
+    d["grays"] = torch.rand(b, generator=g, device=gdev) < 0.2
+    d["strong1_flips"] = torch.rand(b, generator=g, device=gdev) < 0.5
+    return d
 
 
 def comatch_views(batch_u8, img_size: int, dtype=torch.float32,
@@ -196,30 +235,14 @@ def comatch_views(batch_u8, img_size: int, dtype=torch.float32,
     b, dev = x.shape[0], x.device
     if (pi is None) != (pf is None):
         raise ValueError("pass pi with pf")
-    draws = (weak_flips, strong0_flips, pi, jitters, factors, orders, grays,
-             strong1_flips)
-    if generator is None and any(v is None for v in draws):
-        raise ValueError("pass a torch.Generator or every draw explicitly")
-    g = generator
-    gdev = None if g is None else g.device
-    if weak_flips is None:
-        weak_flips = torch.rand(b, generator=g, device=gdev) < 0.5
-    if strong0_flips is None:
-        strong0_flips = torch.rand(b, generator=g, device=gdev) < 0.5
-    if pi is None:
-        pi, pf = sample_randaugment_params(g, b, img_size, img_size)
-    if jitters is None:
-        jitters = torch.rand(b, generator=g, device=gdev) < 0.8
-    if factors is None:
-        u = torch.rand((b, 4), generator=g, device=gdev)
-        factors = torch.cat([0.6 + 0.8 * u[:, :3], 0.2 * u[:, 3:] - 0.1], 1)
-    if orders is None:
-        orders = torch.argsort(torch.rand((b, 4), generator=g, device=gdev),
-                               dim=1)
-    if grays is None:
-        grays = torch.rand(b, generator=g, device=gdev) < 0.2
-    if strong1_flips is None:
-        strong1_flips = torch.rand(b, generator=g, device=gdev) < 0.5
+    given = {"weak_flips": weak_flips, "strong0_flips": strong0_flips,
+             "pi": pi, "pf": pf, "jitters": jitters, "factors": factors,
+             "orders": orders, "grays": grays,
+             "strong1_flips": strong1_flips}
+    d = _fill_draws(given, generator,
+                    lambda g: comatch_draws(g, b, img_size))
+    (weak_flips, strong0_flips, pi, pf, jitters, factors, orders, grays,
+     strong1_flips) = d.values()
 
     weak = _flip_where(x, weak_flips)
     strong0 = randaugment_mc(

@@ -17,7 +17,11 @@ never a new meta beside an old state. A directory without ``state.pt`` is
 a save that did not finish, and :func:`latest_checkpoint` skips it.
 
 Saves are synchronous (the caller's tensors are written before the call
-returns); restores read with ``torch.load(weights_only=True)``.
+returns); restores read with ``torch.load(weights_only=True)``. In a
+process group rank 0 alone writes, fenced by a barrier before (every rank
+has finished the step it saves) and after (no rank reads or resaves the
+directory before it is complete), as the JAX package fences its primary
+host; every rank restores.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from endoscopy_tpu_torch.device import resolve_device
+from endoscopy_tpu_torch.parallel import barrier, group_rank
 
 STATE, META = "state.pt", "meta.json"
 
@@ -53,13 +58,17 @@ def _durable_replace(path: str, write) -> None:
 def save_checkpoint(save_dir: str, name: str, state: Dict,
                     metadata: Dict) -> str:
     """Write ``state`` (a state dict of tensors) and ``metadata`` to
-    ``<save_dir>/<name>/``; returns that directory's absolute path."""
+    ``<save_dir>/<name>/`` (rank 0 alone in a group); returns that
+    directory's absolute path."""
     path = os.path.abspath(os.path.join(save_dir, name))
-    os.makedirs(path, exist_ok=True)
-    _durable_replace(os.path.join(path, STATE),
-                     lambda f: torch.save(state, f))
-    _durable_replace(os.path.join(path, META),
-                     lambda f: f.write(json.dumps(metadata).encode()))
+    barrier()
+    if group_rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        _durable_replace(os.path.join(path, STATE),
+                         lambda f: torch.save(state, f))
+        _durable_replace(os.path.join(path, META),
+                         lambda f: f.write(json.dumps(metadata).encode()))
+    barrier()
     return path
 
 

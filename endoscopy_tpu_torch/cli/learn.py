@@ -4,8 +4,13 @@ Usage::
 
     python -m endoscopy_tpu_torch.cli.learn --config-1 configs/foo.yaml \
         [--config-2 configs/bar.yaml] [--device cuda|cpu]
+    torchrun --standalone --nproc_per_node=<cards> \
+        -m endoscopy_tpu_torch.cli.learn --config-1 configs/foo.yaml
 
-``--config`` is another name for ``--config-1``.
+``--config`` is another name for ``--config-1``. Under ``torchrun`` each
+process joins the group (``parallel/mesh.py::init_from_env``: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and trains on its rows of
+the global batch (``train/common.py``).
 
 Two configs run progressive resizing: the model is built once from the
 first config, and the second stage trains the first stage's final weights
@@ -37,6 +42,8 @@ from endoscopy_tpu_torch.data.manifest import (build_ssl_manifests,
 from endoscopy_tpu_torch.data.pipeline import (CanonicalLoader, EvalLoader,
                                                canonical_size)
 from endoscopy_tpu_torch.models import build_model
+from endoscopy_tpu_torch.parallel import (group_size, in_group,
+                                          init_from_env, leave_group)
 from endoscopy_tpu_torch.train import preempt
 
 
@@ -46,17 +53,32 @@ def _not_ported(what: str) -> NotImplementedError:
         "queue in ROADMAP.md")
 
 
+def rank_batch_size(config) -> int:
+    """This rank's share of the global ``DATA.BATCH_SIZE``; raises when the
+    ranks do not divide it."""
+    bs = int(config.DATA.BATCH_SIZE)
+    world = group_size()
+    if bs % world:
+        raise ValueError(f"DATA.BATCH_SIZE {bs} is not divisible by the "
+                         f"{world} processes of the group")
+    return bs // world
+
+
 def build_data(config):
     """``(train loader(s), valid loader, cls_num_list, labeled targets)``
     from the config's CSVs: ``(labeled, unlabeled)`` loaders for an SSL
-    config, one loader over the full supervised split otherwise."""
+    config, one loader over the full supervised split otherwise. In a
+    process group the train loaders read this rank's rows of the
+    manifests (``shard_for_host``) in this rank's share of the batch; the
+    class counts and targets are the whole manifest's, and every rank's
+    valid loader reads the whole validation set."""
     import pandas as pd
 
     if config.DATA.get("LOADER") == "native":
         raise _not_ported("DATA.LOADER: native (the C++ loader)")
     df_anno = pd.read_csv(config.DATA.ANNO)
     size = canonical_size(config)
-    bs = int(config.DATA.BATCH_SIZE)
+    bs = rank_batch_size(config)
     workers = int(config.DATA.NUM_WORKERS)
     if not config.TRAIN.IS_SSL:
         train, valid, cls_num_list = build_supervised_manifests(
@@ -122,8 +144,9 @@ def prepare_trainer(config, model=None, carry_state=None, device=None,
     """One stage up to ``fit``: the data, the trainer, its config, the
     weights (``carry_state``, the previous stage's model state, or else
     ``MODEL.PRE_TRAIN_PATH``) and the resume. ``data`` is what
-    :func:`build_data` returns; by default it is built from the CSVs.
-    ``trainer_override`` is ``--trainer``."""
+    :func:`build_data` returns (in a process group, this rank's loaders);
+    by default it is built from the CSVs. ``trainer_override`` is
+    ``--trainer``."""
     if data is None:
         data = build_data(config)
     if model is None:
@@ -171,6 +194,8 @@ def main(argv=None) -> None:
 
     # SIGTERM → checkpoint at the next epoch boundary → exit 143
     preempt.install()
+    group = init_from_env(args.device)  # NCCL on cuda:LOCAL_RANK
+    device = group.device if in_group() else args.device
 
     configs = [get_config(args.config_1)]
     if args.config_2:
@@ -178,17 +203,20 @@ def main(argv=None) -> None:
 
     model = None
     carry_state = None
-    for idx, config in enumerate(configs):
-        print(f"=== stage {idx} | IMG_SIZE={config.DATA.IMG_SIZE} ===")
-        trainer, model = run_config(config, model=model,
-                                    carry_state=carry_state,
-                                    device=args.device,
-                                    trainer_override=args.trainer)
-        carry_state = model.state_dict()
-        if preempt.requested():
-            print("[preempt] exiting 143 (checkpoint saved; resume with "
-                  "MODEL.PRE_TRAIN_RESUME)", flush=True)
-            raise SystemExit(143)
+    try:
+        for idx, config in enumerate(configs):
+            print(f"=== stage {idx} | IMG_SIZE={config.DATA.IMG_SIZE} ===")
+            trainer, model = run_config(config, model=model,
+                                        carry_state=carry_state,
+                                        device=device,
+                                        trainer_override=args.trainer)
+            carry_state = model.state_dict()
+            if preempt.requested():
+                print("[preempt] exiting 143 (checkpoint saved; resume with "
+                      "MODEL.PRE_TRAIN_RESUME)", flush=True)
+                raise SystemExit(143)
+    finally:
+        leave_group()
 
 
 if __name__ == "__main__":

@@ -8,8 +8,8 @@ functions take pandas DataFrames but import no pandas: the caller reads
 the CSV (``cli/learn.py::build_data``), so the module imports on a host
 without pandas.
 
-Multi-process data parallelism is not ported: :func:`shard_for_host` is
-the identity in one process and raises in more.
+In a process group :func:`shard_for_host` gives each rank its strided
+slice of a manifest, as each host of the JAX package reads its own.
 """
 
 from __future__ import annotations
@@ -125,14 +125,12 @@ def build_ssl_manifests(config, df_anno, df_unanno=None
 
 
 def shard_for_host(manifest: Manifest) -> Manifest:
-    """The manifest itself in one process. Several processes (an
-    initialized ``torch.distributed`` group of more than one) raise: the
-    per-process slice is the port's multi-GPU item in ROADMAP.md."""
+    """This rank's slice of ``manifest`` in a process group: rank ``i`` of
+    ``P`` keeps rows ``i::P``. The manifest itself in one process."""
     import torch.distributed as dist
 
-    if (dist.is_available() and dist.is_initialized()
+    if not (dist.is_available() and dist.is_initialized()
             and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-process data parallelism (shard_for_host) is not ported "
-            "to endoscopy_tpu_torch yet; see the port queue in ROADMAP.md")
-    return manifest
+        return manifest
+    world, rank = dist.get_world_size(), dist.get_rank()
+    return manifest.take(np.arange(rank, len(manifest), world))

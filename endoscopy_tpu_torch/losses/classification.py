@@ -7,6 +7,12 @@ the sum of the selected weights), ``soft_ce_loss``, ``poly_loss`` and the
 (``balanced_class_weights``, and ``rdw_weights`` with its
 ``effective_number_weights`` for ``TRAIN_RULE: 'RDW'``). The focal and
 LDAM branches raise until their slice (ROADMAP.md).
+
+Inside a process group a mean over the batch is this rank's share of the
+global batch's mean (``parallel/sharding.py::batch_mean``): its rows' sum
+over the global count, or for the weighted mean over the global sum of the
+selected weights (constant: no gradient flows through it). The ranks'
+shares add up to the 1-process mean over the global batch.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from endoscopy_tpu_torch.parallel.sharding import all_reduce_sum, batch_mean
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -43,7 +51,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         return nll
     if reduction == "sum":
         return nll.sum()
-    return nll.sum() / w.sum()
+    return nll.sum() / all_reduce_sum(w.sum().detach())
 
 
 def soft_ce_loss(logits: torch.Tensor, soft_targets: torch.Tensor
@@ -64,7 +72,7 @@ def poly_loss(logits: torch.Tensor, targets: torch.Tensor,
     pt = F.softmax(logits, dim=-1).gather(-1, targets.long()[:, None])[:, 0]
     poly = ce + epsilon * (1.0 - pt)
     if reduction == "mean":
-        return poly.mean()
+        return batch_mean(poly)
     if reduction == "sum":
         return poly.sum()
     return poly

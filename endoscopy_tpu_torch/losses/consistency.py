@@ -3,7 +3,8 @@
 Pseudo-labels come from the weak view's softmax, detached; the confidence
 mask is ``max_prob >= p_cutoff`` as a float; the strong view is trained
 with the masked CE on the argmax pseudo-label, averaged over *all*
-unlabeled rows. Returns ``(loss, mask_mean)``.
+unlabeled rows. Returns ``(loss, mask_mean)``; inside a process group,
+this rank's shares of both (``parallel/sharding.py::batch_mean``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 
 from endoscopy_tpu_torch.losses.classification import (_not_ported, ce_loss,
                                                        soft_ce_loss)
+from endoscopy_tpu_torch.parallel.sharding import batch_mean
 
 
 def consistency_loss(logits_w: torch.Tensor, logits_s: torch.Tensor,
@@ -31,7 +33,7 @@ def consistency_loss(logits_w: torch.Tensor, logits_s: torch.Tensor,
                           "(losses/margin.py)")
     logits_w = logits_w.detach()
     if name == "L2":
-        return torch.mean((logits_s - logits_w) ** 2), logits_w.new_ones(())
+        return batch_mean((logits_s - logits_w) ** 2), logits_w.new_ones(())
 
     max_probs, max_idx = F.softmax(logits_w, dim=-1).max(dim=-1)
     mask = (max_probs >= p_cutoff).to(logits_w.dtype)
@@ -41,4 +43,4 @@ def consistency_loss(logits_w: torch.Tensor, logits_s: torch.Tensor,
     else:
         sharpened = F.softmax(logits_w / T, dim=-1)
         masked = soft_ce_loss(logits_s, sharpened) * mask
-    return masked.mean(), mask.mean()
+    return batch_mean(masked), batch_mean(mask)

@@ -1,10 +1,15 @@
-"""Triplet embedding loss (port of ``endoscopy_tpu/losses/triplet.py``)."""
+"""Triplet embedding loss (port of ``endoscopy_tpu/losses/triplet.py``).
+
+Inside a process group the means are this rank's shares of the global
+batch's (``parallel/sharding.py::batch_mean``)."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from endoscopy_tpu_torch.parallel.sharding import batch_mean
 
 
 def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor,
@@ -16,5 +21,5 @@ def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor,
     d_p = torch.linalg.vector_norm(anchor - positive, dim=1)
     d_n = torch.linalg.vector_norm(anchor - negative, dim=1)
     losses = torch.clamp_min(d_p - d_n + alpha, 0.0)
-    loss = losses.mean() if average_loss else losses.sum()
-    return loss, d_p.mean(), d_n.mean()
+    loss = batch_mean(losses) if average_loss else losses.sum()
+    return loss, batch_mean(d_p), batch_mean(d_n)

@@ -10,13 +10,15 @@ start from flax's initializer (``models/resnet.py::dense``).
 
 The MLP head's dropout draws from its ``generator`` (the trainer sets its
 own, on its device) unless ``keep_mask`` is set (the checks set the JAX
-package's); its BN keeps flax's running variance
+package's); in a process group the trainer sets ``rows``, the global
+batch's row count and this rank's rows, and the head draws the global
+batch's mask and keeps its rows. Its BN keeps flax's running variance
 (``models/resnet.py::_flax_running_var``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -49,6 +51,7 @@ class MLPHead(nn.Module):
         self.fc2 = dense(in_features // 4, out_features)
         self.generator: Optional[torch.Generator] = None
         self.keep_mask: Optional[torch.Tensor] = None
+        self.rows: Optional[Tuple[int, torch.Tensor]] = None
 
     def _after_dropout(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.bn(x))
@@ -59,8 +62,12 @@ class MLPHead(nn.Module):
             return self._after_dropout(x)
         keep_mask, g = self.keep_mask, self.generator
         if keep_mask is None:
-            keep_mask = torch.rand(x.shape, generator=g, device=(
+            shape = x.shape if self.rows is None else (self.rows[0],
+                                                       x.shape[1])
+            keep_mask = torch.rand(shape, generator=g, device=(
                 x.device if g is None else g.device)) < KEEP
+            if self.rows is not None:
+                keep_mask = keep_mask[self.rows[1]]
         x = torch.where(torch.as_tensor(keep_mask, device=x.device),
                         x / KEEP, torch.zeros_like(x))
         return _flax_running_var(self, self._after_dropout, x)

@@ -19,7 +19,9 @@ kept so weights carry across unchanged:
 - the stem max-pool pads by 1;
 - flax BN ``momentum=0.9`` is torch ``momentum=0.1``, ``eps=1e-5``, and
   the train-mode running variance follows the biased batch variance, as
-  flax's does (:func:`_flax_running_var`, for 2-D and 1-D BN alike);
+  flax's does (:func:`_flax_running_var`, for 2-D and 1-D BN alike); in
+  a process group a train-mode BN takes the global batch's statistics
+  (:class:`_SyncedBatchNorm`);
 - fresh weights are drawn as flax draws them: every convolution and dense
   kernel from ``lecun_normal`` (a normal truncated at two standard
   deviations, scaled to variance 1 / fan_in), biases zero, BN scale 1 and
@@ -39,7 +41,11 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
+
+from endoscopy_tpu_torch.parallel.mesh import in_group
 
 # the standard deviation of a standard normal truncated to [-2, 2], which
 # flax's truncated ``variance_scaling`` divides by
@@ -78,16 +84,127 @@ def dense(in_features: int, out_features: int, bias: bool = True
     return fc
 
 
+def _layout_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is dense in channels-last or standard order,
+    else a standard contiguous copy (what the fused CUDA kernels take)."""
+    if t.ndim == 4 and t.is_contiguous(memory_format=torch.channels_last):
+        return t
+    return t.contiguous()
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the global batch of a process group: the batch
+    statistics of every rank's rows, with flax's one-pass variance
+    ``mean(x²) - mean(x)²`` (clamped at 0) from one all-reduce of ``[Σx,
+    Σx²]`` over the global count ``n`` (every rank holds as many rows:
+    ``n`` is the world size times this rank's count); the output is
+    torch's BN of ``x`` at those statistics. The sums are float64 whatever
+    the autocast dtype: in float32 the one-pass difference loses the
+    variance of a channel whose mean is large to cancellation (a float32
+    step of path C part 1's ResNet-50 moved 4× farther from float64 than
+    the fused BN's step). The backward all-reduces ``[Σdy, Σdy·(x -
+    mean)]`` in float32. The weight and bias get this rank's part of
+    their gradient, which the trainer's gradient all-reduce sums.
+
+    On the card the local sums and the backward run in torch's fused
+    kernels of ``nn.SyncBatchNorm`` (one pass each: the local mean and
+    variance, whose sums are ``k·mean`` and ``k·(var + mean²)`` over the
+    rank's ``k`` values; the gradient's two sums; the input gradient);
+    those kernels have no CPU version, so on the CPU the same sums are
+    plain reductions."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, n: int):
+        dims = [0] + list(range(2, x.ndim))
+        f64 = torch.float64
+        x = _layout_contiguous(x)
+        if x.is_cuda:
+            k = x.numel() // x.shape[1]
+            m, inv = torch.batch_norm_stats(x, 0.0)  # inv = var^-1/2
+            m, var = m.to(f64), inv.to(f64).reciprocal().square()
+            local = torch.cat([m * k, (var + m * m) * k])
+        else:
+            local = torch.cat([
+                x.sum(dims, dtype=f64),
+                torch.linalg.vector_norm(x, 2, dims, dtype=f64).square()])
+        dist.all_reduce(local)
+        mean, sq = (local / n).view(2, -1)
+        var = torch.clamp_min(sq - mean * mean, 0.0).float()
+        mean = mean.float()
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.n = n
+        ctx.mark_non_differentiable(mean, var)
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        x, weight, mean, invstd = ctx.saved_tensors
+        dy = _layout_contiguous(dy.to(x.dtype))
+        if dy.is_cuda:
+            sum_dy, sum_dy_xmu, grad_weight, grad_bias = (
+                torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight,
+                                                 True, True, True))
+            local = torch.cat([sum_dy, sum_dy_xmu])
+            dist.all_reduce(local)
+            sum_dy, sum_dy_xmu = local.view(2, -1)
+            count = torch.full((1,), ctx.n, dtype=torch.int32,
+                               device=dy.device)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight,
+                                                 sum_dy, sum_dy_xmu, count)
+            return dx, grad_weight, grad_bias, None, None
+        dims = [0] + list(range(2, x.ndim))
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        local = torch.cat([dy.sum(dims, dtype=torch.float32),
+                           (dy.float() * x.float()).sum(dims)])
+        sum_dy, sum_dy_x = local.view(2, -1)
+        grad_bias = sum_dy.clone()
+        grad_weight = (sum_dy_x - mean * sum_dy) * invstd
+        dist.all_reduce(local)
+        mean_dy, mean_dy_x = (local / ctx.n).view(2, -1)
+        # dx = w·invstd·(dy - mean(dy) - x̂·mean(dy·x̂)), x̂ = (x - mean)·invstd,
+        # as a·dy + b·x + c per channel
+        mean_dy_xhat = (mean_dy_x - mean * mean_dy) * invstd
+        a = weight * invstd
+        b = -a * invstd * mean_dy_xhat
+        c = -a * mean_dy - b * mean
+        dx = torch.addcmul(c.view(shape), dy, a.view(shape))
+        dx.addcmul_(x, b.view(shape))
+        return dx.to(x.dtype), grad_weight, grad_bias, None, None
+
+
 class _NotesCount:
     """A BN that notes, in train mode, its input's count per channel (``n =
-    N·H·W``, or ``N`` for 1-D), for :func:`_flax_running_var`."""
+    N·H·W``, or ``N`` for 1-D), for :func:`_flax_running_var`.
+
+    Inside a process group (``parallel/mesh.py``) a train-mode BN
+    normalizes with the global batch's statistics (:class:`_SyncedBatchNorm`),
+    moves its running statistics as torch does toward them, and notes the
+    global count, so :func:`_flax_running_var` moves the running variance
+    toward the global biased variance. Outside a group torch's fused BN
+    runs as it is."""
 
     count = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and in_group():
+            return self._synced_forward(x)
         if self.training:
             self.count = x.numel() // x.shape[1]
         return super().forward(x)
+
+    def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = dist.get_world_size() * (x.numel() // x.shape[1])
+        self.count = n
+        y, mean, var = _SyncedBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps, n)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var * (n / (n - 1)),
+                                                alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class BatchNorm2d(_NotesCount, nn.BatchNorm2d):

@@ -33,6 +33,13 @@ is ``epoch > 0 or batch_idx > queue_batch``; ``fit`` counts epochs from
 1, so there it is always open. ``TRAIN.GRAD_ACCUM`` > 1 is refused (the
 graph loss couples the whole batch). ``TRAIN.STEPS_PER_CALL`` is ignored,
 as in ``train/fixmatch.py``. The CoMatch state is not checkpointed.
+
+In a process group the batch-wide numbers span the global batch: the DA
+ring takes the global mean of the weak probabilities, the pseudo-label
+graph and the strong embeddings' similarity have a column for every
+unlabeled row of the global batch (the strong-1 embeddings gathered with
+their gradient), the queue's gate counts the global rows and the write is
+the global rows in rank order, so every rank holds the same state.
 """
 
 from __future__ import annotations
@@ -43,8 +50,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from endoscopy_tpu_torch.aug.views import comatch_views, labeled_train_view
+from endoscopy_tpu_torch.aug.views import (comatch_draws, comatch_views,
+                                           labeled_draws, labeled_train_view)
 from endoscopy_tpu_torch.losses import ce_loss
+from endoscopy_tpu_torch.parallel import (all_gather_rows, batch_mean,
+                                          global_mean)
 from endoscopy_tpu_torch.ssl_state.comatch_state import (CoMatchState,
                                                          comatch_state_init)
 from endoscopy_tpu_torch.train.common import BaseTrainer
@@ -104,11 +114,16 @@ class CoMatch(BaseTrainer):
 
     def _views(self, x_lb_u8, u_canon_u8):
         """(x_lb, u_weak, u_strong0, u_strong1) on the device, drawn from
-        the trainer's generator."""
-        x_lb = labeled_train_view(x_lb_u8, self.img_size, self.dtype,
-                                  self.generator, device=self.device)
-        return (x_lb, *comatch_views(u_canon_u8, self.img_size, self.dtype,
-                                     self.generator, device=self.device))
+        the trainer's generator for the global batch (this rank's rows in
+        a group)."""
+        g, world = self.generator, self.group.world
+        x_lb = labeled_train_view(
+            x_lb_u8, self.img_size, self.dtype, device=self.device,
+            **self._rank_draws(labeled_draws(g, world * len(x_lb_u8))))
+        return (x_lb, *comatch_views(
+            u_canon_u8, self.img_size, self.dtype, device=self.device,
+            **self._rank_draws(comatch_draws(g, world * len(u_canon_u8),
+                                             self.img_size))))
 
     @torch.no_grad()
     def _pseudo_and_state(self, logits_u_w, feats_u_w, feats_x, targets,
@@ -118,7 +133,8 @@ class CoMatch(BaseTrainer):
         cs = self.comatch_state
         probs = torch.softmax(logits_u_w, dim=-1)
 
-        da_buffer = _write_rows(cs.da_buffer, probs.mean(0)[None], cs.da_ptr)
+        da_buffer = _write_rows(cs.da_buffer, global_mean(probs)[None],
+                                cs.da_ptr)
         da_len = da_buffer.shape[0]
         da_count = torch.clamp(cs.da_count + 1, max=da_len)
         da_ptr = (cs.da_ptr + 1) % da_len
@@ -136,16 +152,18 @@ class CoMatch(BaseTrainer):
                      + (1 - self.alpha) * (a @ cs.queue_probs))
         mask = (probs.amax(1) >= self.thres).float()
 
-        feats_w = torch.cat([feats_u_w, feats_x])
         queue_feats, queue_probs, queue_ptr = (cs.queue_feats,
                                                cs.queue_probs, cs.queue_ptr)
-        n = feats_w.shape[0]
-        if n == self.queue_size:
-            onehot = F.one_hot(targets, self.num_classes).float()
+        n = self.group.world * (feats_u_w.shape[0] + feats_x.shape[0])
+        if n == self.queue_size:  # the global rows, in rank order
+            feats_w = torch.cat([all_gather_rows(feats_u_w),
+                                 all_gather_rows(feats_x)])
+            onehot = F.one_hot(all_gather_rows(targets),
+                               self.num_classes).float()
             queue_feats = _write_rows(queue_feats, feats_w, queue_ptr)
-            queue_probs = _write_rows(queue_probs,
-                                      torch.cat([probs_orig, onehot]),
-                                      queue_ptr)
+            queue_probs = _write_rows(
+                queue_probs, torch.cat([all_gather_rows(probs_orig), onehot]),
+                queue_ptr)
             queue_ptr = (queue_ptr + n) % self.queue_size
         self.comatch_state = CoMatchState(
             queue_feats=queue_feats, queue_probs=queue_probs,
@@ -172,20 +190,23 @@ class CoMatch(BaseTrainer):
         probs, mask = self._pseudo_and_state(logits_u_w, feats_u_w, feats_x,
                                              targets, use_queue)
 
-        # the embedding graph against the pseudo-label graph
-        sim = torch.exp(feats_u_s0 @ feats_u_s1.T / self.temperature)
+        # the embedding graph against the pseudo-label graph: this rank's
+        # rows, a column for every unlabeled row of the global batch
+        sim = torch.exp(feats_u_s0 @ all_gather_rows(feats_u_s1).T
+                        / self.temperature)
         sim_probs = sim / sim.sum(1, keepdim=True)
-        q = probs @ probs.T
-        q.fill_diagonal_(1.0)
+        q = probs @ all_gather_rows(probs).T
+        rows = torch.arange(btu, device=q.device)
+        q[rows, rows + self.group.rank * btu] = 1.0  # the diagonal
         q = q * (q >= self.contrast_th).float()
         q = q / q.sum(1, keepdim=True)
-        lc = torch.mean(-torch.sum(torch.log(sim_probs + 1e-7) * q, dim=1))
+        lc = batch_mean(-torch.sum(torch.log(sim_probs + 1e-7) * q, dim=1))
 
         # focal unsupervised CE
         logp = -torch.sum(F.log_softmax(logits_u_s0, dim=1) * probs,
                           dim=1) * mask
         p = torch.exp(-logp)
-        lu = torch.mean((1 - p) ** self.gamma * logp)
+        lu = batch_mean((1 - p) ** self.gamma * logp)
 
         loss = lx + self.lambda_u * lu + self.lambda_c * lc
         return torch.stack([loss, lx, lu, lc])
@@ -203,6 +224,7 @@ class CoMatch(BaseTrainer):
                           use_queue: bool) -> torch.Tensor:
         """The forward, the losses and the backward; gradients add into
         ``.grad``. Returns the detached ``[loss, lx, lu, lc]``."""
+        self._layout(x.shape[0], u_w.shape[0], u_w.shape[0], u_w.shape[0])
         logits, fts_low = self._forward(x, u_w, u_s0, u_s1)
         losses = self._losses(logits, fts_low, x.shape[0], targets, weights,
                               use_queue)

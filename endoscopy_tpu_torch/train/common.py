@@ -20,6 +20,31 @@ The trainer protocol is the reference's: ``__init__(model, opt_func)`` →
   meta fields ``epoch``, ``best_valid_perf``, ``trainer``, ``img_size``;
   ``load_checkpoint`` also takes a JAX train state dumped to ``.npz``
   (``tools/torch_port/orbax_to_npz.py``).
+
+In a process group (``parallel/``: one process per card under
+``torchrun``) each rank trains on its rows of the global batch
+(``DATA.BATCH_SIZE`` stays the global batch), and a step's numbers are
+those of the 1-process step on that global batch:
+
+- the generator's seed is the same on every rank, and every draw is made
+  for the global batch, each rank taking its rows' (:meth:`_rank_draws`;
+  the MLP head's dropout through :meth:`_layout`); so an image gets the
+  pixels it gets in one process and the generators stay in step;
+- rank 0's weights go to every rank after init and after a restore;
+- BN normalizes with the global batch's statistics
+  (``models/resnet.py``), each loss is the rank's share of the global loss
+  (``losses/``), the gradients are summed over ranks before the mean over
+  microbatches and the update, and the logged losses are the sums of the
+  shares. ``DistributedDataParallel`` is not used: it averages, where the
+  shares must add, and it does not fit the microbatch loop or the zero
+  gradients of parameters outside the loss;
+- under ``TRAIN.GRAD_ACCUM`` microbatch ``j`` is every rank's ``j``-th
+  chunk, so it needs no exchange of images; its draws are made over
+  microbatch ``j``'s global rows (the JAX package's microbatch ``j`` is
+  rows ``[j·B/K, (j+1)·B/K)`` of its global batch);
+- every rank evaluates the whole validation set (as the JAX package's
+  hosts do), rank 0 alone writes checkpoints and the metric log, and a
+  preemption on any rank stops every rank at the same epoch boundary.
 """
 
 from __future__ import annotations
@@ -39,6 +64,11 @@ from endoscopy_tpu_torch.eval.metrics import calculate_metrics, confusion_matrix
 from endoscopy_tpu_torch.losses import balanced_class_weights, cross_entropy
 from endoscopy_tpu_torch.models.heads import MLPHead
 from endoscopy_tpu_torch.optim import build_optimizer, build_schedule, set_lr
+from endoscopy_tpu_torch.parallel import (all_reduce_max, all_reduce_min,
+                                          all_reduce_sum, broadcast_state,
+                                          current_group, group_size,
+                                          in_group, local_rows,
+                                          mesh_from_config, sync_grads)
 from endoscopy_tpu_torch.ssl_state.ema import ema_init, ema_update
 from endoscopy_tpu_torch.train import preempt
 from endoscopy_tpu_torch.train.state import TrainState
@@ -62,6 +92,16 @@ def trainable_mask(model: nn.Module, freeze_backbone: bool
             for name, _ in model.named_parameters()}
 
 
+def sweep_steps(loader, batch_size: int, device) -> int:
+    """Steps of one sweep over a loader's manifest (at least one): its
+    rows over the rank's batch, the fewest of any rank in a group."""
+    steps = len(getattr(loader, "manifest", [])) // (
+        batch_size // group_size()) or 1
+    if in_group():
+        steps = int(all_reduce_min(torch.tensor(steps, device=device)))
+    return steps
+
+
 @torch.no_grad()
 def mask_grads(model: nn.Module, mask: Dict[str, bool]) -> None:
     """Zero the gradients of the parameters the mask freezes."""
@@ -79,6 +119,7 @@ class BaseTrainer:
     def __init__(self, model: Optional[nn.Module] = None,
                  opt_func: str = "Adam", device=None):
         self.device = resolve_device(device)
+        self.group = current_group(self.device)
         self.model = model
         self.opt_func = opt_func
         self.state: Optional[TrainState] = None
@@ -95,6 +136,7 @@ class BaseTrainer:
     def _setup_common(self, config, n_iter_per_epoch: int,
                       labeled_targets: Optional[np.ndarray]) -> None:
         self.config = config
+        self.group = mesh_from_config(config, current_group(self.device))
         if bool(config.DATA.get("IS_REPROD", False)):
             raise NotImplementedError(
                 "DATA.IS_REPROD (the paper-reproduction views) is not ported "
@@ -106,6 +148,7 @@ class BaseTrainer:
         self.lr_schedule = build_schedule(config, n_iter_per_epoch)
         self.use_ema = bool(config.TRAIN.USE_EMA)
         self.ema_decay = float(config.TRAIN.EMA_DECAY)
+        # the same seed on every rank: every draw is the global batch's
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(config.TRAIN.get("SEED", 42)))
 
@@ -121,8 +164,9 @@ class BaseTrainer:
 
     def _init_state(self) -> None:
         """The model on the device, its optimizer (built with the
-        schedule's ``lr(0)``), the EMA copy, the freeze mask, and the
-        trainer's generator on every head that draws dropout."""
+        schedule's ``lr(0)``), the EMA copy (both rank 0's in a group), the
+        freeze mask, and the trainer's generator on every head that draws
+        dropout."""
         model = self.model.to(self.device)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
@@ -131,11 +175,41 @@ class BaseTrainer:
         self.state = TrainState(
             step=0, model=model, optimizer=optimizer,
             ema=ema_init(model) if self.use_ema else None)
+        broadcast_state(self.state.model, self.state.ema)
         self.grad_mask = trainable_mask(model,
                                         bool(self.config.TRAIN.IS_FREEZE))
-        for m in model.modules():
-            if isinstance(m, MLPHead):
-                m.generator = self.generator
+        self._dropout_heads = [m for m in model.modules()
+                               if isinstance(m, MLPHead)]
+        for m in self._dropout_heads:
+            m.generator = self.generator
+
+    # -- the rows of a rank ---------------------------------------------------
+
+    @staticmethod
+    def _own_rows(x, *blocks: int):
+        """In a group, this rank's rows of ``x`` (a tensor or an array
+        made for the global batch), laid out as ``blocks`` (global row
+        counts, each split over the ranks; default one block of every
+        row); outside a group ``x`` itself."""
+        if not in_group():
+            return x
+        rows = local_rows(*(blocks or (len(x),)))
+        return x[rows.to(x.device)] if torch.is_tensor(x) else x[rows.numpy()]
+
+    def _rank_draws(self, draws: dict, *blocks: int) -> dict:
+        """:meth:`_own_rows` of each of the views' draws."""
+        return {k: self._own_rows(v, *blocks) for k, v in draws.items()}
+
+    def _layout(self, *local_sizes: int) -> None:
+        """In a group, tell every dropout head the next forward's layout:
+        blocks of ``local_sizes`` rows on this rank, each a share of a
+        global block of ``world`` times as many."""
+        if not (in_group() and self._dropout_heads):
+            return
+        blocks = [self.group.world * n for n in local_sizes]
+        rows = (sum(blocks), local_rows(*blocks, device=self.device))
+        for m in self._dropout_heads:
+            m.rows = rows
 
     # -- the update ---------------------------------------------------------
 
@@ -156,7 +230,9 @@ class BaseTrainer:
         """``forward_backward(*m)`` over each microbatch ``m`` (gradients
         add into ``.grad``, BN running statistics thread through), then
         one update on the mean gradient. Returns the mean of the detached
-        statistics ``forward_backward`` returns."""
+        statistics ``forward_backward`` returns. In a group the gradients
+        and the statistics, the ranks' shares, are summed over ranks
+        first."""
         st = self.state
         st.model.train()
         st.optimizer.zero_grad(set_to_none=True)
@@ -165,17 +241,18 @@ class BaseTrainer:
             stats = forward_backward(*m)
             total = stats if total is None else total + stats
             count += 1
-        if count > 1:
-            grads = [p.grad for p in st.model.parameters()
-                     if p.grad is not None]
-            torch._foreach_div_(grads, float(count))
-            total = total / count
         # a parameter outside the loss (ModelwEmb's projection in the
         # triplet branch) gets a zero gradient, as under optax, so weight
         # decay, momentum and Adam's moments still move it
         for p in st.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        sync_grads(st.model)
+        total = all_reduce_sum(total)
+        if count > 1:
+            torch._foreach_div_([p.grad for p in st.model.parameters()],
+                                float(count))
+            total = total / count
         self._apply_grads()
         return total
 
@@ -288,18 +365,20 @@ class BaseTrainer:
                 "img_size": self.img_size}
         path = ckpt_io.save_checkpoint(foldname, f"epoch_{int(self.epoch)}",
                                        self.state.state_dict(), meta)
-        print("Saved checkpoint:", path)
+        if self.group.rank == 0:
+            print("Saved checkpoint:", path)
         return path
 
     def load_checkpoint(self, checkpoint: str, is_train: bool = False) -> None:
         """Restore a checkpoint directory of the port's, or a JAX train
-        state dumped to ``.npz``. The freeze mask is reapplied only when
-        ``is_train``."""
+        state dumped to ``.npz``, on every rank (then rank 0's weights go
+        to all). The freeze mask is reapplied only when ``is_train``."""
         if checkpoint.endswith(".npz"):
             state, meta = train_state_from_npz(checkpoint)
         else:
             state, meta = ckpt_io.restore_checkpoint(checkpoint, self.device)
         self.state.load_state_dict(state)
+        broadcast_state(self.state.model, self.state.ema)
         self._resumed = True
         self.epoch_start = int(meta.get("epoch", 1))
         self.best_valid_perf = meta.get("best_valid_perf")
@@ -312,10 +391,17 @@ class BaseTrainer:
         raise NotImplementedError
 
     def _preempt_break(self, epoch: int, saved_this_epoch: bool = False) -> bool:
-        """True when a preemption signal arrived (``train/preempt.py``):
-        saves a resume checkpoint, unless this epoch's evaluation already
-        saved one, and tells ``fit`` to stop."""
-        if not preempt.requested():
+        """True when a preemption signal arrived (``train/preempt.py``), on
+        any rank of a group (the flag is all-reduced, and set on every
+        rank): saves a resume checkpoint, unless this epoch's evaluation
+        already saved one, and tells ``fit`` to stop."""
+        flag = preempt.requested()
+        if in_group():
+            flag = bool(all_reduce_max(torch.tensor(float(flag),
+                                                    device=self.device)))
+            if flag:
+                preempt.request()
+        if not flag:
             return False
         if self.config.TRAIN.get("SAVE_CP") and not saved_this_epoch:
             self.save_checkpoint(self.config.TRAIN.SAVE_CP)
@@ -324,10 +410,12 @@ class BaseTrainer:
 
     def _metric_logger(self) -> MetricLogger:
         if not hasattr(self, "_logger"):
-            self._logger = MetricLogger(
-                self.config.TRAIN.get("LOG_DIR"),
+            self._logger = MetricLogger(  # rank 0 alone writes it
+                self.config.TRAIN.get("LOG_DIR") if self.group.rank == 0
+                else None,
                 run_name=self.trainer_name.lower(),
-                use_wandb=bool(self.config.TRAIN.get("USE_WANDB", False)))
+                use_wandb=(bool(self.config.TRAIN.get("USE_WANDB", False))
+                           and self.group.rank == 0))
         return self._logger
 
     def _images_per_step(self) -> int:

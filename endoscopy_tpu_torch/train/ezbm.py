@@ -35,6 +35,14 @@ then ``fit()``.
   outside ``self.state``: a checkpoint holds stage 1's moments.
 
 ``TRAIN.GRAD_ACCUM`` > 1 raises: the stage-2 pairs span the whole batch.
+
+In a process group stage 1 is the triplet step of the supervised trainer
+in a group, and at the end of each epoch the anchors' features and
+targets are gathered in the global batch's row order, so every rank holds
+the same memory. Stage 2 draws the global batch's pairs with numpy from
+the same seed on every rank, each rank trains on its rows of them (the
+head's BN over the global batch, the dropout mask drawn for it), and
+``fc``'s gradients are summed over ranks.
 """
 
 from __future__ import annotations
@@ -44,12 +52,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from endoscopy_tpu_torch.aug.views import labeled_train_view
+from endoscopy_tpu_torch.aug.views import labeled_draws, labeled_train_view
 from endoscopy_tpu_torch.losses import ce_loss, triplet_loss
 from endoscopy_tpu_torch.models.heads import KEEP
 from endoscopy_tpu_torch.optim import build_optimizer, set_lr
+from endoscopy_tpu_torch.parallel import (all_gather_rows, all_reduce_sum,
+                                          in_group, sync_grads)
 from endoscopy_tpu_torch.ssl_state.ema import ema_update
-from endoscopy_tpu_torch.train.common import BaseTrainer
+from endoscopy_tpu_torch.train.common import BaseTrainer, sweep_steps
 from endoscopy_tpu_torch.train.supervised import TRIPLET_ALPHA, SupLearning
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
@@ -61,8 +71,8 @@ class EZBM(BaseTrainer):
 
     def get_config(self, config, cls_num_list: Optional[list] = None,
                    labeled_targets: Optional[np.ndarray] = None) -> None:
-        n_iter = len(getattr(self.train_dl, "manifest", [])) // int(
-            config.DATA.BATCH_SIZE) or 1
+        n_iter = sweep_steps(self.train_dl, int(config.DATA.BATCH_SIZE),
+                             self.device)
         self._setup_common(config, n_iter, labeled_targets)
         self.n_iter_per_epoch = n_iter
         self.cls_num_list = list(cls_num_list or [])
@@ -83,6 +93,7 @@ class EZBM(BaseTrainer):
         """One forward of the view ``x`` (NHWC, ``[A; P; N]``), the loss and
         the backward; keeps the anchors' features in ``self._anchor_fts``.
         Returns the detached ``[loss]``."""
+        self._layout(*(x.shape[0] // 3,) * 3)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             logits, fts, fts_low = self.state.model(x.permute(0, 3, 1, 2))
@@ -106,12 +117,16 @@ class EZBM(BaseTrainer):
         return loss[0], self._anchor_fts
 
     def _stage1_step(self, x3_u8, targets, weights):
-        """One stage-1 step from the canonical uint8 ``[A; P; N]`` batch."""
+        """One stage-1 step from the canonical uint8 ``[A; P; N]`` batch
+        (this rank's anchors, positives and negatives in the global one)."""
         x = torch.as_tensor(x3_u8).to(self.device, non_blocking=True)
         t = torch.as_tensor(targets).to(self.device, torch.long,
                                         non_blocking=True)
+        n = self.group.world * x.shape[0]
+        draws = self._rank_draws(labeled_draws(self.generator, n),
+                                 *(n // 3,) * 3)
         view = labeled_train_view(x, self.img_size, self.dtype,
-                                  self.generator, device=self.device)
+                                  device=self.device, **draws)
         return self._stage1_core(view, t, weights)
 
     def train_one_stage_1(self, epoch: int) -> AverageMeter:
@@ -135,7 +150,24 @@ class EZBM(BaseTrainer):
             self.mem_targets.append(np.asarray(targets))
             self._drain_pending(pending, summary_loss, bs)
         self._drain_pending(pending, summary_loss, bs, keep=0)
+        if in_group():
+            self._gather_memory()
         return summary_loss
+
+    def _gather_memory(self) -> None:
+        """Every rank's memorized anchors in the global batch's row order:
+        step by step, the ranks' anchors in rank order."""
+        fts = torch.stack(self.mem_features)  # (steps, n, F)
+        t = torch.as_tensor(np.stack(self.mem_targets)).to(self.device)
+        steps, world = fts.shape[0], self.group.world
+
+        def gathered(a):
+            a = all_gather_rows(a.flatten(0, 1))
+            return a.view(world, steps, -1, *a.shape[1:]).transpose(
+                0, 1).flatten(0, 2)
+
+        self.mem_features = [gathered(fts)]
+        self.mem_targets = [gathered(t).cpu().numpy()]
 
     # -- stage 2 ------------------------------------------------------------
 
@@ -176,14 +208,17 @@ class EZBM(BaseTrainer):
                      keep_mask=None):
         """One stage-2 update of the ``fc`` head on device tensors; the
         head's dropout keep-mask is ``keep_mask``, else one draw from the
-        trainer's generator, the same for both passes. Returns the detached
-        loss."""
+        trainer's generator for the global batch (this rank's rows), the
+        same for both passes. Returns the detached loss (the global one,
+        in a group)."""
         st = self.state
         model, fc = st.model.train(), st.model.fc
         if keep_mask is None:
             g = self.generator
-            keep_mask = torch.rand((feats.shape[0], fc.fc1.out_features),
-                                   generator=g, device=g.device) < KEEP
+            keep_mask = torch.rand(
+                (self.group.world * feats.shape[0], fc.fc1.out_features),
+                generator=g, device=g.device) < KEEP
+            keep_mask = self._own_rows(keep_mask)
         self._opt2.zero_grad(set_to_none=True)
         fc.keep_mask = keep_mask
         try:
@@ -203,13 +238,14 @@ class EZBM(BaseTrainer):
                     p.grad = torch.zeros_like(p)
                 elif not name.startswith("fc."):
                     p.grad.zero_()
+        sync_grads(fc)
         set_lr(self._opt2, self.lr_schedule(self._opt2_count))
         self._opt2.step()
         self._opt2_count += 1
         st.step += 1
         if st.ema is not None:
             ema_update(st.ema, model, self.ema_decay)
-        return loss.detach()
+        return all_reduce_sum(loss.detach())
 
     def _new_stage2_optimizer(self) -> None:
         """A fresh optimizer over every parameter; its schedule count
@@ -220,7 +256,8 @@ class EZBM(BaseTrainer):
 
     def train_one_stage_2(self, epoch: int) -> AverageMeter:
         """Stage-2 steps over this epoch's memory; the pairs drawn on the
-        host, the rows gathered on the device."""
+        host for the global batch, this rank's rows gathered on the
+        device."""
         summary_loss = AverageMeter()
         feats = torch.cat(self.mem_features)
         targets = np.concatenate(self.mem_targets)
@@ -234,7 +271,8 @@ class EZBM(BaseTrainer):
 
         pending = []
         for _ in range(num_steps):
-            idx, dual = self._sample_stage2_batch(targets, bs2, rng)
+            idx, dual = (self._own_rows(a) for a in
+                         self._sample_stage2_batch(targets, bs2, rng))
             y, yd = targets[idx], targets[dual]
             lam = self._stage2_lam(y, yd)
             loss = self._stage2_core(feats[dev(idx)], dev(y),

@@ -27,7 +27,8 @@ from typing import Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from endoscopy_tpu_torch.aug.views import fixmatch_views, labeled_train_view
+from endoscopy_tpu_torch.aug.views import (fixmatch_draws, fixmatch_views,
+                                           labeled_draws, labeled_train_view)
 from endoscopy_tpu_torch.losses import ce_loss, consistency_loss
 from endoscopy_tpu_torch.train.common import BaseTrainer, model_logits
 from endoscopy_tpu_torch.utils.meters import AverageMeter
@@ -56,12 +57,16 @@ class FixMatch(BaseTrainer):
 
     def _views(self, x_lb_u8, u_canon_u8):
         """(x_lb, u_weak, u_strong) on the device, drawn from the
-        trainer's generator."""
-        x_lb = labeled_train_view(x_lb_u8, self.img_size, self.dtype,
-                                  self.generator, device=self.device)
-        u_weak, u_strong = fixmatch_views(u_canon_u8, self.img_size,
-                                          self.dtype, self.generator,
-                                          device=self.device)
+        trainer's generator for the global batch (this rank's rows in a
+        group)."""
+        g, world = self.generator, self.group.world
+        x_lb = labeled_train_view(
+            x_lb_u8, self.img_size, self.dtype, device=self.device,
+            **self._rank_draws(labeled_draws(g, world * len(x_lb_u8))))
+        u_weak, u_strong = fixmatch_views(
+            u_canon_u8, self.img_size, self.dtype, device=self.device,
+            **self._rank_draws(fixmatch_draws(g, world * len(u_canon_u8),
+                                              self.img_size)))
         return x_lb, u_weak, u_strong
 
     def _forward_backward(self, x_lb, u_weak, u_strong, targets,
@@ -70,6 +75,7 @@ class FixMatch(BaseTrainer):
         into ``.grad``. Returns the detached ``[loss, lx, lu, mask_mean]``."""
         model = self.state.model
         bs_lb, btu = x_lb.shape[0], u_weak.shape[0]
+        self._layout(bs_lb, btu, btu)
         inputs = torch.cat([x_lb, u_weak, u_strong]).permute(0, 3, 1, 2)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):

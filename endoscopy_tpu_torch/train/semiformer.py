@@ -36,8 +36,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from endoscopy_tpu_torch.aug.views import labeled_train_view
+from endoscopy_tpu_torch.aug.views import labeled_draws, labeled_train_view
 from endoscopy_tpu_torch.losses import ce_loss, consistency_loss, cross_entropy
+from endoscopy_tpu_torch.train.common import sweep_steps
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
@@ -83,8 +84,10 @@ class SemiFormer(FixMatch):
 
     def _warmup_step(self, x_lb_u8, targets, weights) -> torch.Tensor:
         """One warmup step from the canonical uint8 batch."""
+        draws = labeled_draws(self.generator,
+                              self.group.world * len(x_lb_u8))
         x = labeled_train_view(x_lb_u8, self.img_size, self.dtype,
-                               self.generator, device=self.device)
+                               device=self.device, **self._rank_draws(draws))
         t = torch.as_tensor(targets).to(self.device, torch.long,
                                         non_blocking=True)
         return self._warmup_core(x, t, weights)
@@ -129,7 +132,7 @@ class SemiFormer(FixMatch):
         bs = int(self.config.DATA.BATCH_SIZE)
         it = iter(labeled)
         pending = []
-        for _ in range(max(len(labeled.manifest) // bs, 1)):
+        for _ in range(sweep_steps(labeled, bs, self.device)):
             x_lb, targets = next(it)
             pending.append(self._warmup_step(x_lb, targets, weights))
             self._drain_pending(pending, summary_loss, bs)

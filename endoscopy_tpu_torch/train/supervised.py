@@ -44,11 +44,13 @@ import numpy as np
 import torch
 
 from endoscopy_tpu_torch.aug.mixup import mixup_cutmix
-from endoscopy_tpu_torch.aug.views import labeled_train_view
+from endoscopy_tpu_torch.aug.views import labeled_draws, labeled_train_view
 from endoscopy_tpu_torch.config.loader import is_none
 from endoscopy_tpu_torch.losses import (ce_loss, rdw_weights, soft_ce_loss,
                                         triplet_loss)
-from endoscopy_tpu_torch.train.common import BaseTrainer, model_logits
+from endoscopy_tpu_torch.parallel import batch_mean
+from endoscopy_tpu_torch.train.common import (BaseTrainer, model_logits,
+                                              sweep_steps)
 from endoscopy_tpu_torch.utils.logging import Throughput
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
@@ -66,8 +68,8 @@ class SupLearning(BaseTrainer):
             raise NotImplementedError(
                 "the margin branch (MODEL.MARGIN) is not ported to "
                 "endoscopy_tpu_torch yet; see the port queue in ROADMAP.md")
-        n_iter = len(getattr(self.train_dl, "manifest", [])) // int(
-            config.DATA.BATCH_SIZE) or 1
+        n_iter = sweep_steps(self.train_dl, int(config.DATA.BATCH_SIZE),
+                             self.device)
         self._setup_common(config, n_iter, labeled_targets)
         self.n_iter_per_epoch = n_iter
         self.cls_num_list = cls_num_list
@@ -98,6 +100,8 @@ class SupLearning(BaseTrainer):
         if self.mixup_active and not self.is_triplet:
             x, soft = mixup_cutmix(x, targets, generator=self.generator,
                                    draws=mix_draws, **self.mixup_kw)
+        self._layout(*((x.shape[0] // 3,) * 3 if self.is_triplet
+                       else (x.shape[0],)))
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             out = self.state.model(x.permute(0, 3, 1, 2))
@@ -113,7 +117,7 @@ class SupLearning(BaseTrainer):
         else:
             logits = model_logits(out).float()
             if self.mixup_active:
-                loss = soft_ce_loss(logits, soft).mean()
+                loss = batch_mean(soft_ce_loss(logits, soft))
             else:
                 loss = ce_loss(logits, targets, class_weights=weights,
                                reduction="mean")
@@ -147,7 +151,9 @@ class SupLearning(BaseTrainer):
     def _train_step(self, batch_u8, targets, weights):
         """One step from the canonical uint8 batch (``[A; P; N]`` for the
         triplet branch, ``targets`` the anchors'), in ``grad_accum``
-        microbatches, each with its own view."""
+        microbatches, each with its own view, drawn for the microbatch's
+        global rows (this rank's: its anchors, positives and negatives in
+        the global ``[A; P; N]``)."""
         accum = self.grad_accum
         x = torch.as_tensor(batch_u8).to(self.device, non_blocking=True)
         t = torch.as_tensor(targets).to(self.device, torch.long,
@@ -156,12 +162,17 @@ class SupLearning(BaseTrainer):
             raise ValueError(f"TRAIN.GRAD_ACCUM={accum} does not divide the "
                              f"batch of {t.shape[0]}")
         rows = self._micro_indices(x.shape[0])
+        world = self.group.world
+        blocks = 3 if self.is_triplet else 1
 
         def micro():
             for i, t_m in enumerate(t.chunk(accum)):
                 x_m = x if accum == 1 else x[rows[i].to(x.device)]
+                n = world * len(x_m)
+                draws = self._rank_draws(labeled_draws(self.generator, n),
+                                         *(n // blocks,) * blocks)
                 yield (labeled_train_view(x_m, self.img_size, self.dtype,
-                                          self.generator, device=self.device),
+                                          device=self.device, **draws),
                        t_m)
 
         return self._train_micro(micro(), weights)

@@ -25,7 +25,9 @@ supervised step each, their ``.pth`` maps, the path K-L presets) and
 ``nojax`` (the import and device rules); ``models`` also holds the
 EfficientNet, the SASA ResNet, their ``.pth`` maps and every preset's and
 registry name's parameter count; ``serve`` the side-sized and the
-Conformer artifacts. This one test runs every case and reports every failure
+Conformer artifacts; ``parallel`` (data parallelism: every trainer's step
+in two gloo processes against one process on the same global batch, the
+gathers, checkpoints and shards of a process group). This one test runs every case and reports every failure
 with its traceback. It is one test item so that the counts of the JAX
 suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
 within 2, stay the JAX suite's.
@@ -36,11 +38,11 @@ import traceback
 import torch
 
 from torch_port_checks import (comatch, ezbm, learn, models, nojax,
-                               randaugment, semiformer, serve, supervised,
-                               train, views, zoo)
+                               parallel, randaugment, semiformer, serve,
+                               supervised, train, views, zoo)
 
 MODULES = (models, randaugment, views, serve, train, learn, supervised,
-           comatch, semiformer, ezbm, zoo, nojax)
+           comatch, semiformer, ezbm, zoo, parallel, nojax)
 
 
 def _cases():

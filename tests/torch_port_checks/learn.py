@@ -115,8 +115,9 @@ def _same_manifest(got, want):
 
 def check_manifests_match_jax():
     """Mock and real SSL pools, the supervised splits and ``cls_num_list``:
-    exact. ``shard_for_host`` is the identity in one process and raises
-    in a group of several."""
+    exact. ``shard_for_host`` is the identity in one process and gives
+    rank ``i`` of ``P`` rows ``i::P`` in a group of several, as the JAX
+    package's does."""
     for mock_ssl in (True, False):
         jcfg, cfg = _configs(mock_ssl)
         anno, unanno = _frames(cfg)
@@ -136,10 +137,16 @@ def check_manifests_match_jax():
     m = got[0]
     assert manifest.shard_for_host(m) is m
     dist = torch.distributed
-    with mock.patch.object(dist, "is_initialized", lambda: True), \
-            mock.patch.object(dist, "get_world_size", lambda: 2), \
-            pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        manifest.shard_for_host(m)
+    for rank in range(3):
+        with mock.patch.object(dist, "is_initialized", lambda: True), \
+                mock.patch.object(dist, "get_world_size", lambda: 3), \
+                mock.patch.object(dist, "get_rank", lambda: rank), \
+                mock.patch.object(jmanifest.jax, "process_count", lambda: 3), \
+                mock.patch.object(jmanifest.jax, "process_index",
+                                  lambda: rank):
+            _same_manifest(manifest.shard_for_host(m),
+                           jmanifest.shard_for_host(m))
+            assert len(manifest.shard_for_host(m)) < len(m)
 
 
 def check_loaders_match_jax():

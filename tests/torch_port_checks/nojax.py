@@ -2,7 +2,7 @@
 
 The import check runs in a fresh interpreter, so what the test process
 itself has imported cannot hide a leak. It covers every module of the
-package and ``tests/torch_port_checks/path_{c,...,l}.py``, which
+package and ``tests/torch_port_checks/path_{c,...,l,n}.py``, which
 ``chip_smoke.py`` runs on the card's machine: no JAX and nothing of
 ``endoscopy_tpu``, and none of what that machine lacks (pandas, cv2, PIL,
 PyYAML) at import time. ``chip_smoke.py`` itself is read, not run: no
@@ -26,6 +26,7 @@ from endoscopy_tpu_torch.aug import views
 from endoscopy_tpu_torch.ckpt import io as ckpt_io
 from endoscopy_tpu_torch.cli import learn
 from endoscopy_tpu_torch.models import build_model
+from endoscopy_tpu_torch.parallel import in_group, init_from_env
 from endoscopy_tpu_torch.config.loader import default_config
 from endoscopy_tpu_torch.serve import export, server
 from endoscopy_tpu_torch.train.comatch import CoMatch
@@ -54,7 +55,7 @@ NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "endoscopy_tpu",
 
 
 def check_package_imports_no_jax():
-    mods = _modules() + [f"torch_port_checks.path_{p}" for p in "cdefghijkl"]
+    mods = _modules() + [f"torch_port_checks.path_{p}" for p in "cdefghijkln"]
     assert {"endoscopy_tpu_torch.ops.randaugment_kernel",
             "endoscopy_tpu_torch.cli.learn",
             "endoscopy_tpu_torch.ckpt.io",
@@ -72,7 +73,9 @@ def check_package_imports_no_jax():
             "endoscopy_tpu_torch.train.semiformer",
             "endoscopy_tpu_torch.train.ezbm",
             "endoscopy_tpu_torch.models.efficientnet",
-            "endoscopy_tpu_torch.models.attention"} <= set(mods)
+            "endoscopy_tpu_torch.models.attention",
+            "endoscopy_tpu_torch.parallel.mesh",
+            "endoscopy_tpu_torch.parallel.sharding"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -112,7 +115,8 @@ def check_entry_points_need_cuda_unless_cpu_is_asked():
                       "comatch_views", "labeled_train_view", "make_infer_fn",
                       "load_exported", "make_server", "FixMatch", "CoMatch",
                       "SemiFormer", "BaseTrainer", "SupLearning", "EZBM",
-                      "prepare_trainer", "restore_checkpoint"):
+                      "prepare_trainer", "restore_checkpoint",
+                      "init_from_env"):
             _entry_needs_cuda(Path(tmp), entry)
         _clis_need_cuda(Path(tmp))
 
@@ -171,7 +175,12 @@ def _entry_needs_cuda(tmp_path, entry):
             ssl, data=data, **kw),
         "restore_checkpoint": lambda **kw: ckpt_io.restore_checkpoint(
             ckpt, **kw),
+        # cli/learn.py's group: NCCL on the card by default, never a
+        # silent gloo; outside torchrun (no WORLD_SIZE) no group forms
+        "init_from_env": lambda **kw: init_from_env(**kw),
     }
-    with pytest.raises(RuntimeError, match="device='cpu'"):
+    with pytest.raises(RuntimeError, match="device='cpu'"), \
+            mock.patch.dict(os.environ, {"WORLD_SIZE": "2", "RANK": "0"}):
         calls[entry]()
     calls[entry](device="cpu")  # the explicit choice runs
+    assert not in_group()

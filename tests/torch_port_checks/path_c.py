@@ -18,6 +18,7 @@ from torch import nn
 from endoscopy_tpu_torch.config.loader import default_config
 from endoscopy_tpu_torch.data.pipeline import canonical_size
 from endoscopy_tpu_torch.models import build_model
+from endoscopy_tpu_torch.parallel import local_rows
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
 
 # The training fields of kaggle_semisupervised_real_3_1.yaml (path C's full
@@ -114,16 +115,17 @@ def step_once(config, model, batch, device: str, seed: int, alter=None):
     """One SGD step of a copy of ``model`` on ``device`` through
     ``_train_step``, its views drawn from a CPU generator seeded with
     ``seed``, so every device gets the same draws; ``alter`` maps the views
-    ``(x_lb, u_weak, u_strong)`` to the ones the step takes. Returns
-    ``[loss, lx, lu, mask_mean]`` and each parameter's update, on the CPU
-    in float32."""
+    ``(x_lb, u_weak, u_strong)`` to the ones the step takes. In a process
+    group (path N) each rank takes its rows of ``batch``. Returns ``[loss,
+    lx, lu, mask_mean]`` and each parameter's update, on the CPU in
+    float32."""
     trainer = _trainer(config, model, device, seed)
     params = dict(trainer.state.model.named_parameters())
     before = {k: p.detach().float().cpu().clone() for k, p in params.items()}
     if alter is not None:
         views = trainer._views
         trainer._views = lambda *a: alter(*views(*a))
-    x, t, u = batch
+    x, t, u = (a[local_rows(len(a)).numpy()] for a in batch)
     loss, aux = trainer._train_step(x, t, u, trainer.class_weights)
     stats = [float(loss)] + [float(a) for a in aux]
     return stats, {k: p.detach().float().cpu() - before[k]

@@ -21,7 +21,10 @@ step's ms, the device's busy ms a step (the sum of the device events' self
 times: one stream, so they do not overlap), the device's idle share (1 -
 busy / step), the host's time to enqueue a step, and the ops with the
 most device time; it writes the whole table under ``--out``. Needs a
-card.
+card. Under ``torchrun --standalone --nproc_per_node=1`` the step runs in
+a process group of one over NCCL (``parallel/mesh.py::init_from_env``):
+every collective of data parallelism is issued, and the table is written
+as ``path_<P>_group_ops.txt``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ sys.path.insert(0, str(ROOT / "tests"))
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 
+from endoscopy_tpu_torch.parallel import (in_group, init_from_env,  # noqa: E402
+                                          leave_group)
 from torch_port_checks import path_c, path_f, path_g  # noqa: E402
 
 WARMUP = 3
@@ -82,6 +87,15 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
+    init_from_env()
+    try:
+        return profile(args, card)
+    finally:
+        leave_group()
+
+
+def profile(args, card: str) -> int:
+    """Time, then profile, ``args.steps`` steps of the path."""
     trainer, step = build(args.path)
     for _ in range(WARMUP):
         step()
@@ -113,7 +127,8 @@ def main(argv=None) -> int:
     busy_ms = sum(device_us(e) for e in events
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation) / 1e3 / args.steps
-    print(f"path {args.path}: {args.steps} steps after {WARMUP} warm-up "
+    where = " in a group of 1" if in_group() else ""
+    print(f"path {args.path}{where}: {args.steps} steps after {WARMUP} warm-up "
           f"steps: step {step_ms:.3f} ms (CUDA events, unprofiled), host "
           f"enqueue {enqueue_ms:.3f} ms a step; device busy {busy_ms:.3f} ms "
           f"a step (profiled), idle share {1 - busy_ms / step_ms:.4f}",
@@ -130,7 +145,8 @@ def main(argv=None) -> int:
               f"{e.count / args.steps:7.1f}  {e.key[:90]}", flush=True)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"path_{args.path}_ops.txt").write_text(
+    (out / f"path_{args.path}{'_group' if in_group() else ''}_ops.txt"
+     ).write_text(
         f"{card}\n" + events.table(sort_by="self_device_time_total",
                                     row_limit=200))
     return 0
