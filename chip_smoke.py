@@ -280,6 +280,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    N3 starts before path M and runs beside it (it times nothing; M's two
    timed steps a model are a spread), N1 and N2 after M, alone.
 
+18. path O0: whether the machine can build the native JPEG loader's core
+   (``endoscopy_tpu_torch/data/native_loader.py``): g++'s version, the
+   ``jpeglib.h`` the compiler finds, the ``libjpeg.so`` files ``ldconfig``
+   lists, and with the header the build's seconds. The card's machine has
+   had no libjpeg headers (PERF.md §7), so paths O1-O3 (``cli/learn.py`` on
+   JPEG files) are not in the script yet (ROADMAP.md).
+19. path P: the supervised branches no preset reaches
+   (``tests/torch_port_checks/path_p.py``): the margin step (arcface, the
+   bias-free head), the focal, LDAM, label-smoothing and poly-BCE losses,
+   and the ``DATA.IS_REPROD`` view. P1: path E3's float32 step, card
+   against CPU on both devices' views with a float64 reference, at E3's
+   bounds (seeds 0-2 for the margin and reproduce branches, seed 0 for
+   each loss). P2: each branch at ``kaggle_supervised_patho``'s width (32
+   images at 224 px, bf16, Adam), one warm-up and two timed steps. No
+   kernel runs on it.
+
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
 JSON line and ``{"ok": true, "device": {...}}``.
 """
@@ -302,7 +318,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_port_checks import (path_c, path_d, path_e, path_f,  # noqa: E402
                                path_g, path_h, path_i, path_j, path_k,
-                               path_l)
+                               path_l, path_p)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 
@@ -332,6 +348,12 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 # 0.86..0.92 (seeds 0-2); each run checks that this control fails.
 PART1_SEEDS, PART1_RESIDUAL_GAMMA = 3, 0.1
 TRIPLET_WARMUP_STEPS, TRIPLET_TIMED_STEPS = 3, 8  # path E2
+# path P1's seeds a branch: three for the branches with code of their own
+# (the margin step, the reproduce view), one for each swapped loss (the
+# losses themselves are held against JAX on the CPU); P2's timed steps
+P1_SEEDS = {"margin": 3, "reproduce": 3, "focal": 1, "ldam": 1,
+            "label_smoothing": 1, "poly_bce": 1}
+P2_TIMED_STEPS = 2
 # path E3: the labeled view on the card against the CPU's, normalized
 # units: the last-bit roundings of its jitter's means and its normalize
 # (7.2e-7 read on the H100), far below a wrong op or draw
@@ -1733,15 +1755,16 @@ def supervised_triplet(seed: int, data2):
     return out
 
 
-def cross_device_step(label: str, cfg, batch, seed: int, step, step64):
-    """Path E3's method for one step: the labeled view of ``batch`` on the
-    card and on the CPU from the same draws, ``step(device, view)`` (its
-    ``[stats]`` and updates first) run by each device on each view, and
-    ``step64(view)`` the CPU's float64 updates on the card's view. Fails
-    when the views, the stats or the updates differ beyond E3's bounds;
-    returns ``(readings, the steps by (device, view), the views)``."""
-    views = {dev: path_e.step_view(cfg, batch, seed, dev)
-             for dev in ("cuda", "cpu")}
+def cross_device_step(label: str, cfg, batch, seed: int, step, step64,
+                      view_fn=path_e.step_view):
+    """Path E3's method for one step: the view of ``batch`` (``view_fn``,
+    the labeled train view by default) on the card and on the CPU from the
+    same draws, ``step(device, view)`` (its ``[stats]`` and updates first)
+    run by each device on each view, and ``step64(view)`` the CPU's
+    float64 updates on the card's view. Fails when the views, the stats or
+    the updates differ beyond E3's bounds; returns ``(readings, the steps
+    by (device, view), the views)``."""
+    views = {dev: view_fn(cfg, batch, seed, dev) for dev in ("cuda", "cpu")}
     view_err = float((views["cuda"].cpu() - views["cpu"]).abs().max())
     steps = {(dev, v): step(dev, views[v])
              for dev in ("cpu", "cuda") for v in ("cuda", "cpu")}
@@ -1766,7 +1789,7 @@ def cross_device_step(label: str, cfg, batch, seed: int, step, step64):
     # PERF.md)
     bounds = {"cpu": 3 * cpu_l2 + 1e-3,
               "cuda": 3 * max(cpu_l2, *sens.values()) + 1e-3}
-    print(f"{label}: the labeled view on the card vs the CPU's on the same "
+    print(f"{label}: the step's view on the card vs the CPU's on the same "
           f"draws: max_abs_err {view_err:.3e} (bound {E3_VIEW_TOL}); the "
           f"float32 step, card vs CPU ({len(batch[0])} images, "
           f"{int(cfg.DATA.IMG_SIZE)} px): stats {got} vs {ref}, worst "
@@ -1802,6 +1825,86 @@ def supervised_step_matches_cpu(seed: int):
             f"path E3, seed {seed}, {name}", cfg, (x, t), seed,
             lambda dev, view: path_e.step_once(cfg, model, view, t, dev, seed),
             lambda view: path_e.step_float64(cfg, model, view, t, seed))[0]
+    return out
+
+
+def phase_native_probe():
+    """Path O0: whether this machine can build the native loader's core
+    (``endoscopy_tpu_torch/data/native_loader.py``: g++ with libjpeg's
+    headers and library). Prints g++'s version, the ``jpeglib.h`` the
+    compiler finds and the ``libjpeg.so`` files ``ldconfig`` lists; with
+    the header there, builds the core and prints its seconds. Paths O1-O3
+    (the generator, the loaders and ``cli/learn.py`` on JPEG files) need
+    that build and are not in this script yet (ROADMAP.md)."""
+    import shutil
+
+    gxx = shutil.which("g++")
+    out = {"gxx": None, "jpeglib_h": None, "libjpeg": [], "build_s": None}
+    if gxx:
+        out["gxx"] = subprocess.run([gxx, "--version"], capture_output=True,
+                                    text=True).stdout.splitlines()[0]
+        deps = subprocess.run([gxx, "-M", "-x", "c++", "-"],
+                              input="#include <jpeglib.h>\n",
+                              capture_output=True, text=True)
+        if deps.returncode == 0:
+            out["jpeglib_h"] = next(w for w in deps.stdout.split()
+                                    if w.endswith("jpeglib.h"))
+    ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
+    listed = subprocess.run([ldconfig, "-p"], capture_output=True, text=True)
+    out["libjpeg"] = sorted({line.split("=>")[-1].strip()
+                             for line in listed.stdout.splitlines()
+                             if "libjpeg.so" in line})
+    if out["jpeglib_h"]:
+        from endoscopy_tpu_torch.data import native_loader
+        t0 = time.perf_counter()
+        native_loader.build_library()
+        out["build_s"] = time.perf_counter() - t0
+    print(f"path O0: g++ {out['gxx']!r}; jpeglib.h {out['jpeglib_h']}; "
+          f"libjpeg {out['libjpeg']}; the native loader's core "
+          + (f"built in {out['build_s']:.2f} s" if out["build_s"] is not None
+             else "cannot be built here (no jpeglib.h); paths O1-O3 not run")
+          , flush=True)
+    return out
+
+
+def branch_step_matches_cpu(name: str, seed: int):
+    """Path P1 for one branch and seed: path E3's float32 step, card
+    against CPU (``path_p``)."""
+    cfg = path_p.branch_config(name)
+    model = path_c.seeded_model(cfg, seed, path_c.HEAD_STD,
+                                PART1_RESIDUAL_GAMMA)
+    x, t = path_e.step_batch(cfg, seed)
+    with path_p.loss_branch(name):
+        return cross_device_step(
+            f"path P1, seed {seed}, {name}", cfg, (x, t), seed,
+            lambda dev, view: path_e.step_once(cfg, model, view, t, dev, seed),
+            lambda view: path_e.step_float64(cfg, model, view, t, seed),
+            view_fn=path_p.step_view_fn(name))[0]
+
+
+def phase_branches(seed: int):
+    """Path P: the supervised branches no preset reaches; no kernel runs
+    on it."""
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    rk.randaugment_mc.launches = 0
+    out = {"p1": {name: {s: branch_step_matches_cpu(name, s)
+                         for s in range(seed, seed + P1_SEEDS[name])}
+                  for name in path_p.BRANCHES}, "p2": {}}
+    for name in path_p.BRANCHES:
+        model = {"MARGIN": "arcface"} if name == "margin" else {}
+        cfg = path_c.train_config(
+            path_e.PATHO, MODEL=model,
+            DATA={"IS_REPROD": name == "reproduce"},
+            TRAIN={"SAVE_CP": "", "LOG_DIR": ""})
+        with path_p.loss_branch(name):
+            out["p2"][name] = supervised_timed(
+                cfg, seed, P2_TIMED_STEPS, f"path P2, {name}", warmup=1)
+    out["launches"] = rk.randaugment_mc.launches
+    print(f"path P: randaugment_mc launches {out['launches']} (no kernel on "
+          "this path)", flush=True)
+    if out["launches"]:
+        fail("path P launched the RandAugment kernel")
     return out
 
 
@@ -3744,6 +3847,8 @@ def main(argv=None) -> int:
     run("M", phase_zoo, args.seed, scratch / "path_m")
     run("N", phase_parallel, args.seed, scratch / "path_n", rows["C"],
         started)
+    run("O", phase_native_probe)
+    run("P", phase_branches, args.seed)
 
     train, learn_row, sup_row = rows["C"]["full"], rows["D"], rows["E"]
     f2, f3 = rows["F"]["f2"], rows["F"]["f3"]
@@ -3806,6 +3911,8 @@ def main(argv=None) -> int:
         "path_m": {"launches": rows["M"]["launches"]},
         "path_n": {**fused(n1, IMG_C), "n2_launches": rows["N"]["n2"][
             "launches"], "n2_steps": rows["N"]["n2"]["steps"]},
+        "path_o": {"ran": False, "jpeglib_h": rows["O"]["jpeglib_h"]},
+        "path_p": {"launches": rows["P"]["launches"]},
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

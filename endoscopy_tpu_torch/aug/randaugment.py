@@ -27,7 +27,9 @@ This module is the reference for the kernel's tests and runs only on
 tensors that lie on the CPU, or on the card when a test compares it with
 the kernel. ``sample_randaugment_params`` is the torch twin of the Pallas
 module's sampler: same ``(pi, pf)`` layout, same distribution, drawn from a
-``torch.Generator``.
+``torch.Generator``. The module also holds :func:`randaugment_pc`, the
+plain RandAugmentPC of the JAX package, which no trainer calls and no
+kernel computes.
 """
 
 from __future__ import annotations
@@ -145,18 +147,23 @@ def _sharpness(img: torch.Tensor, factor: float) -> torch.Tensor:
     return _blend(smooth, img, factor)
 
 
+def _shift3(img: torch.Tensor, s1, s2, s3) -> torch.Tensor:
+    """The rows, columns, rows shift passes of a geometric op."""
+    return ops.shift_rows(ops.shift_cols(ops.shift_rows(img, s1), s2), s3)
+
+
 def apply_slot(img: torch.Tensor, op: int, v: float, sign: float,
-               apply: bool) -> torch.Tensor:
-    """One sampled op slot on one float32 (3, H, W) image in [0, 255]."""
+               apply: bool, factor: float | None = None) -> torch.Tensor:
+    """One sampled op slot on one float32 (3, H, W) image in [0, 255];
+    ``factor`` overrides the enhance ops' ``_factor(v)`` (RandAugmentPC's
+    pool scales them otherwise)."""
     if not apply or op == OP_IDENTITY:
         return img
     h, w = img.shape[1], img.shape[2]
     if op in GEOMETRY_OPS:
-        s1, s2, s3 = geometry_shifts(op, v, sign, h, w, img.device)
-        out = ops.shift_rows(img, s1)
-        out = ops.shift_cols(out, s2)
-        return ops.shift_rows(out, s3)
-    factor = _factor(v)
+        return _shift3(img, *geometry_shifts(op, v, sign, h, w, img.device))
+    if factor is None:
+        factor = _factor(v)
     if op == OP_AUTOCONTRAST:
         lo = img.amin(dim=(1, 2), keepdim=True)
         hi = img.amax(dim=(1, 2), keepdim=True)
@@ -248,3 +255,122 @@ def sample_randaugment_params(generator: torch.Generator, batch: int, h: int,
     pi = torch.cat([cx, cy, slots], dim=1).to(torch.int32)
     pf = torch.stack([v, sign], dim=2).reshape(batch, 2 * n)
     return pi, pf.to(torch.float32)
+
+
+# -- RandAugmentPC --------------------------------------------------------
+#
+# The 16-op pool of the reference's ``my_augment_pool`` with the PC
+# distribution: the magnitude fixed at ``m``, a per-slot apply probability
+# drawn from U(0.2, 0.8), a sign on rotate / shear / translate /
+# SolarizeAdd, the pool's own magnitudes (enhance factors v * 1.8 / 10 +
+# 0.1, translate v * 0.45 / 10 of the side, Cutout v * 0.2 / 10 of the
+# shorter side), and the final CutoutAbs(16). Cutout boxes sit at float
+# centres, as the JAX package draws them.
+
+PC_NUM_OPS = 16
+(PC_AUTOCONTRAST, PC_BRIGHTNESS, PC_COLOR, PC_CONTRAST, PC_CUTOUT,
+ PC_EQUALIZE, PC_INVERT, PC_POSTERIZE, PC_ROTATE, PC_SHARPNESS, PC_SHEAR_X,
+ PC_SHEAR_Y, PC_SOLARIZE, PC_SOLARIZE_ADD, PC_TRANSLATE_X,
+ PC_TRANSLATE_Y) = range(PC_NUM_OPS)
+# the PC ops that are RandAugmentMC's ops at the same magnitudes (the
+# enhance ops with PC's factor)
+_PC_AS_MC = {PC_AUTOCONTRAST: OP_AUTOCONTRAST, PC_BRIGHTNESS: OP_BRIGHTNESS,
+             PC_COLOR: OP_COLOR, PC_CONTRAST: OP_CONTRAST,
+             PC_EQUALIZE: OP_EQUALIZE, PC_POSTERIZE: OP_POSTERIZE,
+             PC_ROTATE: OP_ROTATE, PC_SHARPNESS: OP_SHARPNESS,
+             PC_SHEAR_X: OP_SHEAR_X, PC_SHEAR_Y: OP_SHEAR_Y,
+             PC_SOLARIZE: OP_SOLARIZE}
+
+
+def _pc_magnitude(v, max_v: float):
+    """``v * max_v / 10`` as the reference computes it for PC: ``v`` is
+    the constant ``m``, so XLA folds the expression op by op in float32
+    (for MC, where ``v`` is drawn, it folds ``max_v / 10`` first)."""
+    return _F(_F(_F(v) * _F(max_v)) / _F(10.0))
+
+
+def cutout_at(img: torch.Tensor, x0f: float, y0f: float, size: float
+              ) -> torch.Tensor:
+    """CutoutAbs of side ``size`` about the float centre ``(x0f, y0f)``,
+    filled with 127, its bounds inclusive (PIL's rectangle)."""
+    h, w = img.shape[1], img.shape[2]
+    half = _F(size) / _F(2.0)
+    x0 = int(max(_F(0.0), _F(x0f) - half))
+    y0 = int(max(_F(0.0), _F(y0f) - half))
+    x1 = int(min(_F(w), _F(x0) + _F(size)))
+    y1 = int(min(_F(h), _F(y0) + _F(size)))
+    out = img.clone()
+    out[:, y0:y1 + 1, x0:x1 + 1] = CUTOUT_FILL
+    return out
+
+
+def apply_pc_slot(img: torch.Tensor, op: int, sign: float, apply: bool,
+                  cut_xy, m: int = 10) -> torch.Tensor:
+    """One RandAugmentPC slot on one float32 (3, H, W) image in [0, 255]:
+    ``op`` in 0..15, ``cut_xy`` the float centre of the Cutout op's box."""
+    if not apply:
+        return img
+    v = _F(m)
+    h, w = img.shape[1], img.shape[2]
+    if op in _PC_AS_MC:
+        factor = _pc_magnitude(v, 1.8) + _F(0.1)
+        return apply_slot(img, _PC_AS_MC[op], float(v), sign, True, factor)
+    if op == PC_CUTOUT:
+        size = np.trunc(_pc_magnitude(v, 0.2) * _F(min(h, w)))
+        return cutout_at(img, cut_xy[0], cut_xy[1], size)
+    if op == PC_INVERT:
+        return 255.0 - img
+    if op == PC_SOLARIZE_ADD:
+        add = float(_F(sign) * np.trunc(_pc_magnitude(v, 110.0)))
+        added = torch.clamp(img + add, 0.0, 255.0)
+        return torch.where(added >= 128.0, 255.0 - added, added)
+    if op in (PC_TRANSLATE_X, PC_TRANSLATE_Y):
+        mag = _F(sign) * _pc_magnitude(v, 0.45)
+        zeros_h = torch.zeros(h, dtype=torch.int32, device=img.device)
+        zeros_w = torch.zeros(w, dtype=torch.int32, device=img.device)
+        if op == PC_TRANSLATE_X:
+            s1 = torch.full_like(zeros_h, int(np.trunc(mag * _F(w))))
+            return _shift3(img, s1, zeros_w, zeros_h)
+        s2 = torch.full_like(zeros_w, int(np.trunc(mag * _F(h))))
+        return _shift3(img, zeros_h, s2, zeros_h)
+    raise ValueError(f"unknown RandAugmentPC op {op}")
+
+
+def pc_draws(generator: torch.Generator, batch: int, h: int, w: int,
+             n: int = 2):
+    """:func:`randaugment_pc`'s draws with the reference's distribution:
+    ``op_ids`` (B, n) ~ U{0..15}, ``signs`` (B, n) ±1, ``applies`` (B, n) with
+    probability U(0.2, 0.8), ``slot_cuts`` (B, n, 2) and ``cuts`` (B, 2)
+    float box centres uniform over the image."""
+    g, dev = generator, generator.device
+
+    def centres(*shape):
+        u = torch.rand((*shape, 2), generator=g, device=dev)
+        return u * torch.tensor([float(w), float(h)], device=dev)
+
+    op_ids = torch.randint(0, PC_NUM_OPS, (batch, n), generator=g, device=dev)
+    signs = torch.where(torch.rand((batch, n), generator=g, device=dev) < 0.5,
+                        -1.0, 1.0)
+    prob = 0.2 + 0.6 * torch.rand((batch, n), generator=g, device=dev)
+    applies = torch.rand((batch, n), generator=g, device=dev) < prob
+    return {"op_ids": op_ids, "signs": signs, "applies": applies,
+            "slot_cuts": centres(batch, n), "cuts": centres(batch)}
+
+
+def randaugment_pc(x: torch.Tensor, op_ids: torch.Tensor, signs: torch.Tensor,
+                   applies: torch.Tensor, slot_cuts: torch.Tensor,
+                   cuts: torch.Tensor, m: int = 10) -> torch.Tensor:
+    """RandAugmentPC(n, m) + CutoutAbs(16) over a float NHWC batch in [0,
+    255] with explicit per-image draws (:func:`pc_draws`); returns NHWC in
+    ``x``'s dtype. The plain version: no trainer calls it."""
+    op_l, sign_l, apply_l = op_ids.tolist(), signs.tolist(), applies.tolist()
+    slot_l, cut_l = slot_cuts.tolist(), cuts.tolist()
+    outs = []
+    for i in range(x.shape[0]):
+        img = x[i].permute(2, 0, 1).float()
+        for s in range(len(op_l[i])):
+            img = apply_pc_slot(img, op_l[i][s], sign_l[i][s], apply_l[i][s],
+                                slot_l[i][s], m)
+        img = cutout_at(img, cut_l[i][0], cut_l[i][1], CUTOUT)
+        outs.append(img.permute(1, 2, 0).to(x.dtype))
+    return torch.stack(outs)

@@ -15,12 +15,16 @@ offsets and the padding, and the kernel reads each window through mirrored
 indices, so no padded batch is made. CoMatch's strong-0 view launches the
 kernel in plain mode (no crop). On the card these views always run the
 CUDA kernel; the plain version runs only for tensors on the CPU. The
-labeled train view and CoMatch's colour-jitter view are plain PyTorch: the
-reference computes them with XLA, outside any Pallas kernel.
+labeled train view, CoMatch's colour-jitter view and the paper-reproduction
+views (``DATA.IS_REPROD``) are plain PyTorch: the reference computes them
+with XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from endoscopy_tpu_torch.aug import ops
@@ -259,3 +263,84 @@ def comatch_views(batch_u8, img_size: int, dtype=torch.float32,
     strong1 = _flip_where(strong1, strong1_flips)
     return (normalize(weak, dtype), normalize(strong0, dtype),
             normalize(strong1, dtype))
+
+
+# The paper-reproduction views (``DATA.IS_REPROD``; the supervised trainer
+# alone). The reference's Resize(256) → CenterCrop(256) → Resize(224)
+# collapses to one bilinear resize of the square canonical batch; train
+# adds hflip and vflip (p=0.5 each) and a uniform ±90° rotation; the
+# normalization is mean = std = 0.5, not ImageNet's.
+
+
+@functools.lru_cache(maxsize=16)
+def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """``jax.image.resize``'s 'linear' weights along one axis, ``(n_in,
+    n_out)`` float32: the triangle kernel, widened by the scale when
+    shrinking (antialiased), each column normalized, columns whose sample
+    lies outside the input zero. Read-only."""
+    inv = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv, np.float32(1.0))
+    sample = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv
+              - np.float32(0.5))
+    x = np.abs(sample[None, :]
+               - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    w = np.where(inside[None, :], w, 0).astype(np.float32)
+    w.flags.writeable = False
+    return w
+
+
+def _resize_square(x: torch.Tensor, img_size: int) -> torch.Tensor:
+    """NHWC ``x`` resized to ``img_size`` square as ``jax.image.resize(...,
+    'linear')`` does it (an axis of equal size is left alone)."""
+    for axis in (1, 2):
+        if x.shape[axis] != img_size:
+            w = torch.tensor(_resize_matrix(x.shape[axis], img_size),
+                             dtype=x.dtype, device=x.device)
+            x = torch.tensordot(x, w, dims=([axis], [0])).movedim(-1, axis)
+    return x
+
+
+def _normalize_half(img: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[0, 255] → [-1, 1]: Normalize(mean=0.5, std=0.5) after ToTensor."""
+    return (img / 255.0 * 2.0 - 1.0).to(dtype)
+
+
+def reproduce_draws(generator: torch.Generator, b: int):
+    """:func:`reproduce_train_view`'s draws for ``b`` images: ``hflips``,
+    ``vflips`` (p=0.5 each), ``angles`` in [-90, 90) degrees."""
+    g, gdev = generator, generator.device
+    return {"hflips": torch.rand(b, generator=g, device=gdev) < 0.5,
+            "vflips": torch.rand(b, generator=g, device=gdev) < 0.5,
+            "angles": torch.rand(b, generator=g, device=gdev) * 180.0 - 90.0}
+
+
+def reproduce_train_view(batch_u8, img_size: int, dtype=torch.float32,
+                         generator: torch.Generator | None = None, *,
+                         device=None, hflips=None, vflips=None, angles=None
+                         ) -> torch.Tensor:
+    """The paper-reproduction train view: resize to ``img_size`` → hflip
+    and vflip (each p=0.5) → rotate by U(-90, 90)° → normalize with mean =
+    std = 0.5. ``hflips``/``vflips`` (B,) bool and ``angles`` (B,) float32
+    degrees override the generator's draws."""
+    x = _u8_on_device(batch_u8, device)
+    b = x.shape[0]
+    given = {"hflips": hflips, "vflips": vflips, "angles": angles}
+    hflips, vflips, angles = _fill_draws(
+        given, generator, lambda g: reproduce_draws(g, b)).values()
+    x = _resize_square(x.to(dtype), img_size)
+    x = _flip_where(x, hflips)
+    x = _flip_where(x, vflips, ops.vflip)
+    return _normalize_half(ops.rotate(x, torch.as_tensor(angles)), dtype)
+
+
+def reproduce_eval_view(batch_u8, img_size: int, dtype=torch.float32,
+                        device=None) -> torch.Tensor:
+    """The paper-reproduction eval view: resize to ``img_size`` →
+    normalize with mean = std = 0.5."""
+    x = _u8_on_device(batch_u8, device).to(dtype)
+    return _normalize_half(_resize_square(x, img_size), dtype)

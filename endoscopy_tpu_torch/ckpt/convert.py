@@ -158,7 +158,8 @@ def _port_items(params: Mapping, batch_stats: Optional[Mapping]):
         node, name = _walk(params, path), ".".join(path)
         if "kernel" in node:
             yield f"{name}.weight", np.asarray(node["kernel"]).T
-            yield f"{name}.bias", node["bias"]
+            if "bias" in node:  # the margin head has none
+                yield f"{name}.bias", node["bias"]
             continue
         yield f"{name}.weight", node["scale"]
         yield f"{name}.bias", node["bias"]

@@ -26,9 +26,12 @@ a donor's trunk and ``MODEL.PRE_TRAIN_RESUME`` resumes a checkpoint (a
 directory of the port, or a JAX train state dumped to ``.npz``). SIGTERM
 checkpoints at the next epoch boundary and exits 143.
 
-pandas (the CSVs) and cv2 (the JPEGs) are imported only by
-:func:`build_data`, so a caller that brings its own loaders needs neither.
-Not ported yet (ROADMAP.md): ``DATA.LOADER: native`` and ``--preview``.
+:func:`build_data` reads the CSVs with ``data/csv_table.py`` (no pandas).
+``DATA.LOADER: native`` decodes the JPEGs with the C++ core
+(``data/native_loader.py``: libjpeg, built at first use), the validation
+set too, so that route needs no cv2; any other value decodes with cv2,
+imported only then. A caller that brings its own loaders needs neither.
+Not ported yet (ROADMAP.md): ``--preview``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import argparse
 
 from endoscopy_tpu_torch.config.loader import get_config, is_none
+from endoscopy_tpu_torch.data.csv_table import read_csv
 from endoscopy_tpu_torch.data.manifest import (build_ssl_manifests,
                                                build_supervised_manifests,
                                                shard_for_host)
@@ -64,6 +68,16 @@ def rank_batch_size(config) -> int:
     return bs // world
 
 
+def _train_loader(manifest, bs: int, size: int, seed: int, workers: int,
+                  native: bool):
+    if native:
+        from endoscopy_tpu_torch.data.native_loader import \
+            NativeCanonicalLoader
+        return NativeCanonicalLoader(manifest, bs, size, seed=seed,
+                                     num_threads=workers)
+    return CanonicalLoader(manifest, bs, size, seed=seed, num_workers=workers)
+
+
 def build_data(config):
     """``(train loader(s), valid loader, cls_num_list, labeled targets)``
     from the config's CSVs: ``(labeled, unlabeled)`` loaders for an SSL
@@ -71,32 +85,35 @@ def build_data(config):
     process group the train loaders read this rank's rows of the
     manifests (``shard_for_host``) in this rank's share of the batch; the
     class counts and targets are the whole manifest's, and every rank's
-    valid loader reads the whole validation set."""
-    import pandas as pd
-
-    if config.DATA.get("LOADER") == "native":
-        raise _not_ported("DATA.LOADER: native (the C++ loader)")
-    df_anno = pd.read_csv(config.DATA.ANNO)
+    valid loader reads the whole validation set. ``DATA.LOADER: native``
+    decodes every loader's files with the C++ core (seeds 0 and 1 for the
+    train loaders, ``NUM_WORKERS`` threads each)."""
+    native = config.DATA.get("LOADER") == "native"
+    decoder = None
+    if native:
+        from endoscopy_tpu_torch.data.native_loader import decode_files
+        decoder = decode_files
+    df_anno = read_csv(config.DATA.ANNO)
     size = canonical_size(config)
     bs = rank_batch_size(config)
     workers = int(config.DATA.NUM_WORKERS)
+    valid_kw = dict(num_workers=workers, decoder=decoder)
     if not config.TRAIN.IS_SSL:
         train, valid, cls_num_list = build_supervised_manifests(
             config, df_anno, is_full_sup=True)
-        train_dl = CanonicalLoader(shard_for_host(train), bs, size, seed=0,
-                                   num_workers=workers)
-        valid_dl = EvalLoader(valid, bs, size, num_workers=workers)
+        train_dl = _train_loader(shard_for_host(train), bs, size, 0, workers,
+                                 native)
+        valid_dl = EvalLoader(valid, bs, size, **valid_kw)
         return train_dl, valid_dl, cls_num_list, train.targets
     df_unanno = (None if config.DATA.MOCKUP_SSL
-                 else pd.read_csv(config.DATA.UNANNO))
+                 else read_csv(config.DATA.UNANNO))
     labeled, unlabeled, valid, cls_num_list = build_ssl_manifests(
         config, df_anno, df_unanno)
-    lab_dl = CanonicalLoader(shard_for_host(labeled), bs, size, seed=0,
-                             num_workers=workers)
-    unl_dl = CanonicalLoader(shard_for_host(unlabeled),
-                             bs * int(config.DATA.MU), size, seed=1,
-                             num_workers=workers)
-    valid_dl = EvalLoader(valid, bs, size, num_workers=workers)
+    lab_dl = _train_loader(shard_for_host(labeled), bs, size, 0, workers,
+                           native)
+    unl_dl = _train_loader(shard_for_host(unlabeled),
+                           bs * int(config.DATA.MU), size, 1, workers, native)
+    valid_dl = EvalLoader(valid, bs, size, **valid_kw)
     return (lab_dl, unl_dl), valid_dl, cls_num_list, labeled.targets
 
 

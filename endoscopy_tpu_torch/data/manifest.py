@@ -4,9 +4,8 @@ The CSVs carry ``image``/``path`` (``DATA.INPUT_NAME``), ``target``,
 ``is_valid``, and for SSL splits ``is_labeled`` (mock pools) or ``pred``
 (real pools, filtered by ``pred == 1``). A :class:`Manifest` is the resolved
 flat view of one split: image paths and integer targets. The split
-functions take pandas DataFrames but import no pandas: the caller reads
-the CSV (``cli/learn.py::build_data``), so the module imports on a host
-without pandas.
+functions take a pandas DataFrame or the port's ``data/csv_table.py``
+table, which ``cli/learn.py::build_data`` reads; they import no pandas.
 
 In a process group :func:`shard_for_host` gives each rank its strided
 slice of a manifest, as each host of the JAX package reads its own.

@@ -2,8 +2,7 @@
 
 The host ships ONE canonical uint8 NHWC batch per role, at
 ``IMG_SIZE × DATA.CANONICAL_SCALE`` when ``IS_CROP``; every view derives
-from it on the device. ``cv2`` is imported only by the decoders, so the
-serving path that takes raw canonical buffers needs no OpenCV.
+from it on the device.
 
 - :class:`CanonicalLoader`: infinite shuffled batches ``(imgs_u8,
   targets)`` with wrap-around fixed-size batches, reshuffled each pass, from
@@ -12,15 +11,22 @@ serving path that takes raw canonical buffers needs no OpenCV.
 - :class:`EvalLoader`: one deterministic pass; the last batch repeats row
   0 with ``mask=False`` (``(imgs_u8, targets, mask)``).
 
-Both decode through :meth:`decode` (cv2 over a thread pool), cache the
-whole manifest when it fits under the RAM bound and stream otherwise.
+Both decode through :meth:`decode` over a thread pool, cache the whole
+manifest when it fits under the RAM bound and stream otherwise. A file is
+decoded by cv2 (:func:`decode_canonical`), imported only then; the
+``EvalLoader``'s ``decoder=`` takes a function ``(paths, size) -> uint8
+rows`` instead, such as the native core's
+``data/native_loader.py::decode_files``, which needs no cv2. Under ``DATA.LOADER: native`` ``cli/learn.py::build_data``
+gives it to the validation loader: a convention of the port's, since the
+JAX package evaluates with cv2 even under ``native``. The serving path,
+which takes raw canonical buffers, needs neither.
 """
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -69,20 +75,40 @@ def _canonicalize_bgr(img: np.ndarray, size: int) -> np.ndarray:
     return np.ascontiguousarray(img, dtype=np.uint8)
 
 
-class _Decoder:
-    """Threaded, order-preserving batch decode (executor.map keeps order)."""
+BatchDecoder = Callable[[Sequence[str], int], np.ndarray]
 
-    def __init__(self, num_workers: int) -> None:
+
+class _Decoder:
+    """Threaded, order-preserving batch decode: cv2 a file at a time
+    (``executor.map`` keeps the order), or a batch decoder ``(paths, size)
+    -> rows`` on one chunk of the paths a worker."""
+
+    def __init__(self, num_workers: int,
+                 decoder: Optional[BatchDecoder] = None) -> None:
+        self._workers = num_workers
+        self._batch_decoder = decoder
         self._pool = (ThreadPoolExecutor(num_workers) if num_workers > 0
                       else None)
 
     def decode_batch(self, paths, size: int) -> np.ndarray:
+        if self._batch_decoder is not None:
+            return self._decode_chunks(list(paths), size)
         if self._pool is None:
             rows = [decode_canonical(p, size) for p in paths]
         else:
             rows = list(self._pool.map(
                 lambda p: decode_canonical(p, size), paths))
         return np.stack(rows) if rows else np.zeros((0, size, size, 3), np.uint8)
+
+    def _decode_chunks(self, paths, size: int) -> np.ndarray:
+        if self._pool is None or len(paths) < 2:
+            return self._batch_decoder(paths, size)
+        chunks = np.array_split(np.arange(len(paths)),
+                                min(self._workers, len(paths)))
+        parts = self._pool.map(
+            lambda c: self._batch_decoder([paths[i] for i in c], size),
+            chunks)
+        return np.concatenate(list(parts))
 
     def close(self) -> None:
         if self._pool is not None:
@@ -93,10 +119,11 @@ class _Decoding:
     """What both loaders share: the decoder and the optional cache."""
 
     def _init_decoding(self, manifest: Manifest, size: int, num_workers: int,
-                       cache: bool, cache_limit_bytes: int, name: str) -> None:
+                       cache: bool, cache_limit_bytes: int, name: str,
+                       decoder: Optional[BatchDecoder]) -> None:
         self.manifest = manifest
         self.size = int(size)
-        self._decoder = _Decoder(int(num_workers))
+        self._decoder = _Decoder(int(num_workers), decoder)
         est_bytes = len(manifest) * self.size * self.size * 3
         if cache and est_bytes > cache_limit_bytes:
             print(f"{name}: cache would need {est_bytes / 1e9:.1f} GB "
@@ -135,7 +162,7 @@ class CanonicalLoader(_Decoding):
         self.shuffle = bool(shuffle)
         self.rng = np.random.default_rng(seed)
         self._init_decoding(manifest, size, num_workers, cache,
-                            cache_limit_bytes, "CanonicalLoader")
+                            cache_limit_bytes, "CanonicalLoader", None)
 
     def sample(self, indices: np.ndarray) -> np.ndarray:
         """Decoded canonical rows for arbitrary manifest indices (cached
@@ -185,12 +212,13 @@ class EvalLoader(_Decoding):
 
     def __init__(self, manifest: Manifest, batch_size: int, size: int,
                  num_workers: int = 2, cache: Optional[bool] = None,
-                 cache_limit_bytes: int = DEFAULT_CACHE_LIMIT_BYTES) -> None:
+                 cache_limit_bytes: int = DEFAULT_CACHE_LIMIT_BYTES,
+                 decoder: Optional[BatchDecoder] = None) -> None:
         self.batch_size = int(batch_size)
         if cache is None:
             cache = len(manifest) * int(size) ** 2 * 3 <= cache_limit_bytes
         self._init_decoding(manifest, size, num_workers, cache,
-                            cache_limit_bytes, "EvalLoader")
+                            cache_limit_bytes, "EvalLoader", decoder)
 
     def __len__(self) -> int:
         return -(-len(self.manifest) // self.batch_size)

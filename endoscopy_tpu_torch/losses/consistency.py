@@ -3,8 +3,11 @@
 Pseudo-labels come from the weak view's softmax, detached; the confidence
 mask is ``max_prob >= p_cutoff`` as a float; the strong view is trained
 with the masked CE on the argmax pseudo-label, averaged over *all*
-unlabeled rows. Returns ``(loss, mask_mean)``; inside a process group,
-this rank's shares of both (``parallel/sharding.py::batch_mean``).
+unlabeled rows; with ``margin_loss_fn`` (the angular-margin path) the
+strong "logits" are backbone features, and ``margin_loss_fn(features,
+pseudo_label, mask)`` is the loss. Returns ``(loss, mask_mean)``; inside a
+process group, this rank's shares of both
+(``parallel/sharding.py::batch_mean``).
 """
 
 from __future__ import annotations
@@ -14,8 +17,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from endoscopy_tpu_torch.losses.classification import (_not_ported, ce_loss,
-                                                       soft_ce_loss)
+from endoscopy_tpu_torch.losses.classification import ce_loss, soft_ce_loss
 from endoscopy_tpu_torch.parallel.sharding import batch_mean
 
 
@@ -28,10 +30,11 @@ def consistency_loss(logits_w: torch.Tensor, logits_s: torch.Tensor,
     ``use_hard_labels=False`` the target is ``softmax(logits_w / T)``."""
     if name not in ("ce", "L2"):
         raise ValueError(f"unknown consistency loss {name!r}")
-    if margin_loss_fn is not None:
-        raise _not_ported("the angular-margin consistency path "
-                          "(losses/margin.py)")
     logits_w = logits_w.detach()
+    if margin_loss_fn is not None:
+        max_probs, max_idx = F.softmax(logits_w, dim=-1).max(dim=-1)
+        mask = (max_probs >= p_cutoff).to(logits_w.dtype)
+        return margin_loss_fn(logits_s, max_idx, mask), batch_mean(mask)
     if name == "L2":
         return batch_mean((logits_s - logits_w) ** 2), logits_w.new_ones(())
 

@@ -1,8 +1,8 @@
 """Classification heads (port of ``endoscopy_tpu/models/heads.py``).
 
 ``build_head`` is the reference's factory: a simple linear head, or the
-"complex" MLP in → in/4 → ReLU → Dropout(0.2) → BatchNorm1d → out. The
-bias-free head of the margin losses is not ported yet (ROADMAP.md).
+"complex" MLP in → in/4 → ReLU → Dropout(0.2) → BatchNorm1d → out; with
+``use_bias=False`` the linear head is the margin losses' bias-free fc.
 
 Heads run in float32 with autocast off, as the flax heads do (their
 ``dtype`` is float32) while the backbone computes in bf16. Their kernels
@@ -30,11 +30,13 @@ KEEP = 0.8  # 1 - the MLP head's dropout rate
 
 
 class LinearHead(nn.Module):
-    """Linear head with bias (the reference's simple head)."""
+    """Linear head (the reference's simple head); bias-free for the margin
+    losses."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True):
         super().__init__()
-        self.fc = dense(in_features, out_features)
+        self.fc = dense(in_features, out_features, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(x)
@@ -74,11 +76,11 @@ class MLPHead(nn.Module):
 
 
 def build_head(in_features: int, out_features: int,
-               is_complex: bool = False) -> nn.Module:
-    """The reference's head factory (with bias)."""
+               is_complex: bool = False, use_bias: bool = True) -> nn.Module:
+    """The reference's head factory."""
     if is_complex:
         return MLPHead(in_features, out_features)
-    return LinearHead(in_features, out_features)
+    return LinearHead(in_features, out_features, use_bias)
 
 
 class ClassifierHead(nn.Module):

@@ -10,8 +10,9 @@ under ``ModelwEmb``; and ``conformer``, the dual-head Conformer with its
 own heads (Conformer-Ti, or the
 ``MODEL.{EMBED_DIM,DEPTH,NUM_HEADS,MLP_RATIO,PATCH_SIZE,CHANNEL_RATIO}``
 overrides). The backbones in ``_SIZED`` are built for ``DATA.IMG_SIZE``:
-flax sizes their parameters or constants from the input at init. The
-bias-free margin head raises and points at the port queue in ROADMAP.md.
+flax sizes their parameters or constants from the input at init. With
+``MODEL.MARGIN`` the plain classifier's linear head is bias-free (the
+margin losses' fc).
 """
 
 from __future__ import annotations
@@ -56,12 +57,6 @@ CONFORMER_FIELDS = (("EMBED_DIM", "embed_dim"), ("DEPTH", "depth"),
                      ("CHANNEL_RATIO", "channel_ratio"))
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to endoscopy_tpu_torch yet; see the port "
-        "queue in ROADMAP.md")
-
-
 # backbones built for the input side (flax sizes them from the input at
 # init): SASA's relative encodings, Swin's and SwinMLP's windows (and
 # Swin's masks), CoAtNet's bias tables, ViT-LSA's position embedding
@@ -94,7 +89,6 @@ def build_model(config) -> nn.Module:
                                int(config.DATA.IMG_SIZE))
     if config.MODEL.TYPE_SEMI == "CoMatch" or bool(config.MODEL.IS_TRIPLET):
         return ModelwEmb(backbone, num_classes, int(config.MODEL.LOW_DIM))
-    if not is_none(config.MODEL.MARGIN):
-        raise _not_ported("the bias-free margin head")
-    return ClassifierHead(backbone, build_head(backbone.num_features,
-                                               num_classes))
+    return ClassifierHead(backbone, build_head(
+        backbone.num_features, num_classes,
+        use_bias=is_none(config.MODEL.MARGIN)))

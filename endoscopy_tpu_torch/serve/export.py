@@ -2,7 +2,8 @@
 
 The JAX package lowers the forward to StableHLO; the port ships a
 port-owned artifact instead: ``torch.save`` of ``{format, arch,
-num_classes, img_size, input_size, dtype, batch, model, state_dict}``,
+num_classes, img_size, input_size, dtype, batch, quantize, is_reprod,
+model, state_dict}``,
 loaded back with ``weights_only=True`` (tensors and plain values only, no
 pickled code). Serving rebuilds the model from ``arch``, the ``MODEL``
 fields that shape it (``model``: the wrapper's ``TYPE_SEMI``,
@@ -10,10 +11,12 @@ fields that shape it (``model``: the wrapper's ``TYPE_SEMI``,
 ``EMBED_DIM``, ``DEPTH``, ...) and ``img_size`` (``DATA.IMG_SIZE``: the
 side-sized backbones, SASA's encodings, Swin's windows, CoAtNet's tables,
 ViT-LSA's position embedding, are built for it), and runs the same eval
-forward: canonical uint8 NHWC → center crop + ImageNet normalize →
-backbone → head → float32 softmax. A model with several outputs serves
-its first (``train/common.py::model_logits``): ``ModelwEmb``'s logits,
-the Conformer's conv head alone, as the JAX export does. An artifact
+forward: canonical uint8 NHWC → center crop + ImageNet normalize (under
+``is_reprod``, a model trained with ``DATA.IS_REPROD``: resize + the mean
+= std = 0.5 normalize) → backbone → head → float32 softmax. A model with
+several outputs serves its first (``train/common.py::model_logits``):
+``ModelwEmb``'s logits, the Conformer's conv head alone, as the JAX export
+does. An artifact
 without ``model`` (written before it) rebuilds from ``arch`` and
 ``num_classes`` as it did.
 
@@ -22,8 +25,8 @@ without ``model`` (written before it) rebuilds from ``arch`` and
 :func:`load_exported` dequantizes them once, at load, into the serving
 dtype (bf16 on the card), so the forward is the unquantized one on the
 dequantized weights, the numbers the JAX artifact computes when XLA folds
-the same convert × scale into its constants. An artifact without the key
-(the first format) loads as before.
+the same convert × scale into its constants. An artifact without one of
+these keys (an earlier format) loads as before.
 
 """
 
@@ -34,7 +37,7 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
-from endoscopy_tpu_torch.aug.views import eval_view
+from endoscopy_tpu_torch.aug.views import eval_view, reproduce_eval_view
 from endoscopy_tpu_torch.config.loader import default_config
 from endoscopy_tpu_torch.data.pipeline import canonical_size
 from endoscopy_tpu_torch.device import resolve_device, resolve_dtype
@@ -51,11 +54,16 @@ MODEL_FIELDS = ("TYPE_SEMI", "IS_TRIPLET", "LOW_DIM", "MARGIN",
 
 
 def make_infer_fn(model: torch.nn.Module, img_size: int, dtype: str = "bfloat16",
-                  device=None):
+                  device=None, is_reprod: bool = False):
     """Closure over the model: canonical uint8 batch → float32 softmax
     probabilities as a numpy array. ``dtype`` is the config's compute
-    dtype: bf16 autocast on the card, float32 always on the CPU."""
+    dtype: bf16 autocast on the card, float32 always on the CPU.
+    ``is_reprod`` takes the paper-reproduction eval view (resize and the
+    mean = std = 0.5 normalize) in place of the center crop and
+    ImageNet's normalize, as a model trained under ``DATA.IS_REPROD`` was
+    evaluated."""
     dev = resolve_device(device)
+    view = reproduce_eval_view if is_reprod else eval_view
     cdtype = resolve_dtype(dev, dtype)
     model = model.to(dev).eval()
     if dev.type == "cuda":
@@ -63,7 +71,7 @@ def make_infer_fn(model: torch.nn.Module, img_size: int, dtype: str = "bfloat16"
 
     @torch.inference_mode()
     def infer(batch_u8) -> np.ndarray:
-        x = eval_view(batch_u8, img_size, cdtype, device=dev)
+        x = view(batch_u8, img_size, cdtype, device=dev)
         x = x.permute(0, 3, 1, 2)  # NCHW shape, channels_last strides
         with torch.autocast(device_type=dev.type, dtype=torch.bfloat16,
                             enabled=cdtype == torch.bfloat16):
@@ -100,6 +108,7 @@ def export_model(config, state_dict: Mapping[str, torch.Tensor], out_path: str,
         "dtype": str(config.TRAIN.get("DTYPE", "bfloat16")),
         "batch": None if batch is None else int(batch),
         "quantize": quantize,
+        "is_reprod": bool(config.DATA.get("IS_REPROD", False)),
         "model": {key: config.MODEL[key] for key in MODEL_FIELDS
                   if key in config.MODEL},
         "state_dict": (quantize_state_dict(model) if quantize else
@@ -129,7 +138,8 @@ def load_exported(path: str, device=None):
         dev = resolve_device(device)
         state = dequantize_state_dict(state, resolve_dtype(dev, art["dtype"]))
     model.load_state_dict(state, strict=True)
-    infer = make_infer_fn(model, art["img_size"], art["dtype"], device)
+    infer = make_infer_fn(model, art["img_size"], art["dtype"], device,
+                          is_reprod=bool(art.get("is_reprod", False)))
     infer.input_size = int(art["input_size"])
     infer.num_classes = int(art["num_classes"])
     infer.batch = art["batch"]

@@ -14,8 +14,9 @@ The trainer protocol is the reference's: ``__init__(model, opt_func)`` →
 - On the card the step computes in bf16 autocast with ``channels_last``
   (``TRAIN.DTYPE``); on the CPU always in float32. Evaluation runs the
   model (the EMA teacher when ``TRAIN.USE_EMA``) in eval mode the same way,
-  on ``eval_view`` at ``IMG_SIZE``, and fetches its results once, after
-  the last batch.
+  on ``eval_view`` at ``IMG_SIZE`` (``reproduce_eval_view`` under
+  ``DATA.IS_REPROD``, which only the supervised trainer takes), and
+  fetches its results once, after the last batch.
 - Checkpoints (``ckpt/io.py``) hold ``TrainState.state_dict()`` and the
   meta fields ``epoch``, ``best_valid_perf``, ``trainer``, ``img_size``;
   ``load_checkpoint`` also takes a JAX train state dumped to ``.npz``
@@ -56,7 +57,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from endoscopy_tpu_torch.aug.views import eval_view
+from endoscopy_tpu_torch.aug.views import eval_view, reproduce_eval_view
 from endoscopy_tpu_torch.ckpt import io as ckpt_io
 from endoscopy_tpu_torch.ckpt.convert import train_state_from_npz
 from endoscopy_tpu_torch.device import resolve_device, resolve_dtype
@@ -115,6 +116,8 @@ class BaseTrainer:
     """Common state, config plumbing, evaluation, checkpoints and ``fit``."""
 
     trainer_name = "Base"
+    # True in the trainers whose step takes the DATA.IS_REPROD views
+    _supports_reprod = False
 
     def __init__(self, model: Optional[nn.Module] = None,
                  opt_func: str = "Adam", device=None):
@@ -137,11 +140,12 @@ class BaseTrainer:
                       labeled_targets: Optional[np.ndarray]) -> None:
         self.config = config
         self.group = mesh_from_config(config, current_group(self.device))
-        if bool(config.DATA.get("IS_REPROD", False)):
-            raise NotImplementedError(
-                "DATA.IS_REPROD (the paper-reproduction views) is not ported "
-                "to endoscopy_tpu_torch yet; see the port queue in "
-                "ROADMAP.md")
+        self.is_reprod = bool(config.DATA.get("IS_REPROD", False))
+        if self.is_reprod and not self._supports_reprod:
+            raise ValueError(
+                "DATA.IS_REPROD selects the supervised paper-reproduction "
+                f"transforms; trainer {type(self).__name__} does not "
+                "implement them (train/eval views would silently mismatch)")
         self.img_size = int(config.DATA.IMG_SIZE)
         self.dtype = resolve_dtype(self.device,
                                    config.TRAIN.get("DTYPE", "bfloat16"))
@@ -286,7 +290,8 @@ class BaseTrainer:
     def _eval_step(self, model, batch_u8, targets, mask):
         """``(sum of CE × mask, sum of mask, softmax probabilities)`` of one
         padded batch, on the device (:meth:`_eval_loss_probs`)."""
-        x = eval_view(batch_u8, self.img_size, self.dtype, device=self.device)
+        view = reproduce_eval_view if self.is_reprod else eval_view
+        x = view(batch_u8, self.img_size, self.dtype, device=self.device)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             out = model(x.permute(0, 3, 1, 2))

@@ -6,12 +6,17 @@ manifest sets the steps of an epoch, ``len(manifest) // BATCH_SIZE`` or 1,
 and the triplet branch samples through its ``sample`` and ``rng``), then
 ``get_config(config, cls_num_list, labeled_targets)``, then ``fit()``.
 
-A step is the labeled train view of the batch on the device, then one of
-two loss branches:
+A step is the labeled train view of the batch on the device (the
+paper-reproduction view under ``DATA.IS_REPROD``, with its eval view in
+evaluation), then one of three loss branches:
 
 - plain: weighted CE on the float32 logits; with ``TRAIN.MIXUP`` or
   ``TRAIN.CUTMIX`` above 0, the view is mixed (``aug/mixup.py``) and the
   loss is the soft CE on the mixed targets;
+- margin (``MODEL.MARGIN`` one of arcface, sphereface, cosface, acloss):
+  the backbone's float32 features and the bias-free head's weight through
+  ``losses/margin.py::angular_penalty_loss`` with the class weights; the
+  head itself does not run, and Mixup is not applied;
 - triplet (``MODEL.IS_TRIPLET``, ``ModelwEmb``): the batch is
   ``[anchors; positives; negatives]`` (:meth:`_build_triplet_batch`), one
   forward over all of it, the triplet loss (alpha 0.7) on the pooled
@@ -31,9 +36,6 @@ an epoch once that count passes 5; ``best_valid_perf`` is not updated.
 Every 5 epochs the triplet branch logs the last step's mean anchor-positive
 and anchor-negative distances to the JSONL log (the reference's histogram
 PNG waits for ``eval/visualize.py``, ROADMAP.md).
-
-Not ported yet (ROADMAP.md): the margin branch (``MODEL.MARGIN``), focal
-and LDAM, and the reproduce views (``DATA.IS_REPROD``).
 """
 
 from __future__ import annotations
@@ -44,9 +46,12 @@ import numpy as np
 import torch
 
 from endoscopy_tpu_torch.aug.mixup import mixup_cutmix
-from endoscopy_tpu_torch.aug.views import labeled_draws, labeled_train_view
+from endoscopy_tpu_torch.aug.views import (labeled_draws, labeled_train_view,
+                                           reproduce_draws,
+                                           reproduce_train_view)
 from endoscopy_tpu_torch.config.loader import is_none
-from endoscopy_tpu_torch.losses import (ce_loss, rdw_weights, soft_ce_loss,
+from endoscopy_tpu_torch.losses import (angular_penalty_loss, ce_loss,
+                                        rdw_weights, soft_ce_loss,
                                         triplet_loss)
 from endoscopy_tpu_torch.parallel import batch_mean
 from endoscopy_tpu_torch.train.common import (BaseTrainer, model_logits,
@@ -58,16 +63,13 @@ TRIPLET_ALPHA = 0.7
 
 
 class SupLearning(BaseTrainer):
-    """The supervised trainer with its plain and triplet branches."""
+    """The supervised trainer with its plain, margin and triplet branches."""
 
     trainer_name = "SupLearning"
+    _supports_reprod = True
 
     def get_config(self, config, cls_num_list: Optional[list] = None,
                    labeled_targets: Optional[np.ndarray] = None) -> None:
-        if not is_none(config.MODEL.MARGIN):
-            raise NotImplementedError(
-                "the margin branch (MODEL.MARGIN) is not ported to "
-                "endoscopy_tpu_torch yet; see the port queue in ROADMAP.md")
         n_iter = sweep_steps(self.train_dl, int(config.DATA.BATCH_SIZE),
                              self.device)
         self._setup_common(config, n_iter, labeled_targets)
@@ -75,6 +77,8 @@ class SupLearning(BaseTrainer):
         self.cls_num_list = cls_num_list
         self.lambda_c = float(config.TRAIN.LAMBDA_C)
         self.is_triplet = bool(config.MODEL.IS_TRIPLET)
+        self.margin = (None if is_none(config.MODEL.MARGIN)
+                       else str(config.MODEL.MARGIN))
         tr = config.TRAIN
         self.mixup_kw = dict(
             num_classes=int(config.MODEL.NUM_CLASSES),
@@ -97,6 +101,8 @@ class SupLearning(BaseTrainer):
         and the backward; gradients add into ``.grad``. ``mix_draws``
         (Mixup's) override the trainer's generator. Returns the detached
         ``[loss]``, or ``[loss, d_ap, d_an]`` for the triplet branch."""
+        if self.margin is not None and not self.is_triplet:
+            return self._margin_forward_backward(x, targets, weights)
         if self.mixup_active and not self.is_triplet:
             x, soft = mixup_cutmix(x, targets, generator=self.generator,
                                    draws=mix_draws, **self.mixup_kw)
@@ -124,6 +130,21 @@ class SupLearning(BaseTrainer):
             stats = [loss]
         loss.backward()
         return torch.stack(stats).detach()
+
+    def _margin_forward_backward(self, x, targets, weights) -> torch.Tensor:
+        """The margin branch: the backbone's features (the head does not
+        run) and the bias-free head's weight through the angular-penalty
+        loss, in float32."""
+        model = self.state.model
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self.dtype == torch.bfloat16):
+            fts = model.backbone(x.permute(0, 3, 1, 2))
+        loss = angular_penalty_loss(fts.float(), targets,
+                                    model.head.fc.weight.float(),
+                                    loss_type=self.margin,
+                                    cls_weight=weights)
+        loss.backward()
+        return loss.detach()[None]
 
     def _train_micro(self, micro, weights):
         """``(view, targets[, mix_draws])`` microbatches
@@ -164,16 +185,18 @@ class SupLearning(BaseTrainer):
         rows = self._micro_indices(x.shape[0])
         world = self.group.world
         blocks = 3 if self.is_triplet else 1
+        view, draw = ((reproduce_train_view, reproduce_draws)
+                      if self.is_reprod else
+                      (labeled_train_view, labeled_draws))
 
         def micro():
             for i, t_m in enumerate(t.chunk(accum)):
                 x_m = x if accum == 1 else x[rows[i].to(x.device)]
                 n = world * len(x_m)
-                draws = self._rank_draws(labeled_draws(self.generator, n),
+                draws = self._rank_draws(draw(self.generator, n),
                                          *(n // blocks,) * blocks)
-                yield (labeled_train_view(x_m, self.img_size, self.dtype,
-                                          device=self.device, **draws),
-                       t_m)
+                yield (view(x_m, self.img_size, self.dtype,
+                            device=self.device, **draws), t_m)
 
         return self._train_micro(micro(), weights)
 

@@ -27,22 +27,26 @@ EfficientNet, the SASA ResNet, their ``.pth`` maps and every preset's and
 registry name's parameter count; ``serve`` the side-sized and the
 Conformer artifacts; ``parallel`` (data parallelism: every trainer's step
 in two gloo processes against one process on the same global batch, the
-gathers, checkpoints and shards of a process group). This one test runs every case and reports every failure
-with its traceback. It is one test item so that the counts of the JAX
-suite that ``PARITY.md`` documents, and ``tests/test_parity_doc.py`` checks
-within 2, stay the JAX suite's.
+gathers, checkpoints and shards of a process group); ``native`` (the
+native JPEG loader, the synthetic dataset generator and the CSV reader:
+bit for bit against the JAX package's, and ``cli/learn.py`` with
+``DATA.LOADER: native`` where pandas and cv2 cannot be imported). This
+one test runs every case and reports every failure with its traceback. It
+is one test item so that the counts of the JAX suite that ``PARITY.md``
+documents, and ``tests/test_parity_doc.py`` checks within 2, stay the JAX
+suite's.
 """
 
 import traceback
 
 import torch
 
-from torch_port_checks import (comatch, ezbm, learn, models, nojax,
+from torch_port_checks import (comatch, ezbm, learn, models, native, nojax,
                                parallel, randaugment, semiformer, serve,
                                supervised, train, views, zoo)
 
 MODULES = (models, randaugment, views, serve, train, learn, supervised,
-           comatch, semiformer, ezbm, zoo, parallel, nojax)
+           comatch, semiformer, ezbm, zoo, parallel, native, nojax)
 
 
 def _cases():

@@ -132,11 +132,16 @@ def check_npz_roundtrip():
 
 
 def check_unported_models_point_to_roadmap():
-    """The margin head raises and points at ROADMAP.md; an unknown backbone
-    raises, as the JAX registry does (every name of it is ported);
-    CoMatch's model, ``ModelwEmb``, is built."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(default_config({"MODEL": {"MARGIN": "ArcFace"}}))
+    """``MODEL.MARGIN`` builds the plain classifier with the bias-free
+    linear head, as the JAX registry does; an unknown backbone raises, as
+    the JAX registry does (every name of it is ported); CoMatch's model,
+    ``ModelwEmb``, is built."""
+    margin = build_model(default_config({"MODEL": {
+        "NAME": "resnet_tiny", "MARGIN": "ArcFace"}}))
+    assert type(margin.head).__name__ == "LinearHead"
+    assert margin.head.fc.bias is None
+    assert build_model(default_config({"MODEL": {
+        "NAME": "resnet_tiny"}})).head.fc.bias is not None
     with pytest.raises(ValueError, match="unknown model 'densenet169'"):
         build_model(default_config({"MODEL": {"NAME": "densenet169"}}))
     comatch = build_model(default_config({"MODEL": {

@@ -2,7 +2,7 @@
 
 The import check runs in a fresh interpreter, so what the test process
 itself has imported cannot hide a leak. It covers every module of the
-package and ``tests/torch_port_checks/path_{c,...,l,n}.py``, which
+package and ``tests/torch_port_checks/path_{c,...,l,n,p}.py``, which
 ``chip_smoke.py`` runs on the card's machine: no JAX and nothing of
 ``endoscopy_tpu``, and none of what that machine lacks (pandas, cv2, PIL,
 PyYAML) at import time. ``chip_smoke.py`` itself is read, not run: no
@@ -55,7 +55,8 @@ NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "endoscopy_tpu",
 
 
 def check_package_imports_no_jax():
-    mods = _modules() + [f"torch_port_checks.path_{p}" for p in "cdefghijkln"]
+    mods = _modules() + [f"torch_port_checks.path_{p}"
+                         for p in "cdefghijklnp"]
     assert {"endoscopy_tpu_torch.ops.randaugment_kernel",
             "endoscopy_tpu_torch.cli.learn",
             "endoscopy_tpu_torch.ckpt.io",
@@ -75,7 +76,10 @@ def check_package_imports_no_jax():
             "endoscopy_tpu_torch.models.efficientnet",
             "endoscopy_tpu_torch.models.attention",
             "endoscopy_tpu_torch.parallel.mesh",
-            "endoscopy_tpu_torch.parallel.sharding"} <= set(mods)
+            "endoscopy_tpu_torch.parallel.sharding",
+            "endoscopy_tpu_torch.data.native_loader",
+            "endoscopy_tpu_torch.data.synthetic",
+            "endoscopy_tpu_torch.data.csv_table"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -22,14 +22,8 @@ import torch
 from endoscopy_tpu_torch.data.manifest import Manifest, get_cls_num_list
 from endoscopy_tpu_torch.data.pipeline import (CanonicalLoader, EvalLoader,
                                                canonical_size)
+from endoscopy_tpu_torch.data.synthetic import _PALETTE as PALETTE
 from torch_port_checks import path_c
-
-# _class_image's palette (cycled beyond 12 classes)
-PALETTE = np.array([
-    (200, 60, 60), (60, 200, 60), (60, 60, 200), (200, 200, 60),
-    (200, 60, 200), (60, 200, 200), (230, 140, 40), (140, 40, 230),
-    (40, 230, 140), (120, 120, 120), (230, 230, 230), (90, 50, 20),
-], np.float32)
 
 # (labeled, unlabeled, valid) images of each stage
 STAGE1_SIZES = (1536, 7168, 1024)

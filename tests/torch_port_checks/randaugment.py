@@ -26,6 +26,7 @@ from endoscopy_tpu_torch.ops import randaugment_kernel as tk
 
 S = 24
 SHARPNESS_ATOL = 0.51  # the JAX package's own bar (test_pallas_kernel.py)
+ULP_255 = float(np.spacing(np.float32(255.0)))  # a float32 ulp at 255
 
 
 def _pallas_forced(imgs, pi, pf):
@@ -267,3 +268,73 @@ def check_param_sampling_distribution():
     assert set(np.unique(pf[:, 1::2])) == {-1.0, 1.0}
     assert 0.45 < (pf[:, 1::2] > 0).mean() < 0.55
     assert pi[:, :2].min() >= 0 and pi[:, :2].max() <= S - 1
+
+
+def _jax_pc_draws(key, h, w, n, m):
+    """The slot draws JAX ``randaugment_pc(img, key, n, m)`` makes
+    (aug/randaugment.py:272-285): each slot's op, sign and apply, the
+    centre its Cutout op would take, and the final CutoutAbs's centre."""
+    from endoscopy_tpu.aug import randaugment as jra
+
+    def centre(k):
+        kx, ky = jax.random.split(k)
+        return [float(jax.random.uniform(kx, (), minval=0.0, maxval=w)),
+                float(jax.random.uniform(ky, (), minval=0.0, maxval=h))]
+
+    op_ids, signs, applies, slot_cuts = [], [], [], []
+    for _ in range(n):
+        key, k_slot, k_branch = jax.random.split(key, 3)
+        op, _, sign, apply = jra.sample_pc_slot_params(k_slot, m)
+        op_ids.append(int(op))
+        signs.append(float(sign))
+        applies.append(bool(apply))
+        slot_cuts.append(centre(k_branch))
+    _, k_cut = jax.random.split(key)
+    return op_ids, signs, applies, slot_cuts, centre(k_cut)
+
+
+def check_randaugment_pc_matches_jax():
+    """The plain RandAugmentPC (no trainer calls it; no kernel) against JAX
+    ``randaugment_pc`` on the same slot draws, at m 10 (the reference's)
+    and 7 (posterize and solarize at other than their extremes), 48
+    images a magnitude so that every one of the 16 ops is applied: within
+    one float32 ulp at 255 (1.5e-5; JAX's ``ops.color`` groups the
+    luminance's fused multiply-adds otherwise than the kernel's order the
+    port follows, and its grey differs by that ulp: measured 1.5e-5),
+    except images that ran sharpness (0.51: the JAX package's bar; JAX
+    computes its blur as a convolution) or contrast (1.0: a contrast mean
+    that rounds the other way at a near-tie moves a pixel by at most
+    factor - 1 < 1), as the RandAugmentMC checks and ``chip_smoke.py``
+    hold them."""
+    from endoscopy_tpu.aug import randaugment as jra
+
+    b, n = 48, 2
+    seen = set()
+    for m in (10, 7):
+        rng = np.random.default_rng(m)
+        imgs = rng.integers(0, 256, (b, S, S, 3)).astype(np.float32)
+        keys = jax.random.split(jax.random.key(100 + m), b)
+        want = np.asarray(jax.jit(jax.vmap(
+            lambda im, k, m=m: jra.randaugment_pc(im, k, n=n, m=m)))(
+            jnp.asarray(imgs), keys))
+        draws = [_jax_pc_draws(k, S, S, n, m) for k in keys]
+        op_ids, signs, applies, slot_cuts, cuts = (
+            torch.tensor([d[i] for d in draws]) for i in range(5))
+        got = tra.randaugment_pc(torch.from_numpy(imgs), op_ids, signs,
+                                 applies, slot_cuts, cuts, m=m).numpy()
+        for i in range(b):
+            ran = {o for o, a in zip(draws[i][0], draws[i][2]) if a}
+            seen |= ran
+            if ran & {tra.PC_SHARPNESS, tra.PC_CONTRAST}:
+                atol = (SHARPNESS_ATOL if tra.PC_SHARPNESS in ran else 1.0)
+                np.testing.assert_allclose(got[i], want[i], rtol=0,
+                                           atol=atol, err_msg=f"m {m}, "
+                                           f"image {i}, ops {ran}")
+                continue
+            np.testing.assert_allclose(got[i], want[i], rtol=0, atol=ULP_255,
+                                       err_msg=f"m {m}, image {i}, ops {ran}")
+    assert seen == set(range(tra.PC_NUM_OPS)), seen
+    d = tra.pc_draws(torch.Generator().manual_seed(0), 4000, S, S)
+    assert set(d["op_ids"].unique().tolist()) == set(range(tra.PC_NUM_OPS))
+    assert 0.45 < float(d["applies"].float().mean()) < 0.55
+    assert 0.0 <= float(d["cuts"].min()) and float(d["cuts"].max()) < S

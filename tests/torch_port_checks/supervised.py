@@ -63,12 +63,14 @@ import pytest
 import torch
 
 from endoscopy_tpu.aug import mixup as jmixup
+from endoscopy_tpu.aug import views as jviews
 from endoscopy_tpu.ckpt import orbax_io as jax_orbax_io
 from endoscopy_tpu.cli import evaluate as jax_evaluate
 from endoscopy_tpu.cli import pseudo_label as jax_pseudo_label
 from endoscopy_tpu.losses import classification as jcls
 from endoscopy_tpu.losses import triplet as jtriplet
 from endoscopy_tpu.models import build_model as jax_build_model
+from endoscopy_tpu.serve import export as jexport
 from endoscopy_tpu.optim import optimizers as jopt
 from endoscopy_tpu.train import state as jax_state
 from endoscopy_tpu.train.common import trainable_mask as jax_trainable_mask
@@ -83,6 +85,9 @@ from endoscopy_tpu_torch.losses import (effective_number_weights, rdw_weights,
                                         triplet_loss)
 from endoscopy_tpu_torch.models import build_model
 from endoscopy_tpu_torch.models.heads import MLPHead
+from endoscopy_tpu_torch.serve import export
+from endoscopy_tpu_torch.train import supervised as supervised_mod
+from endoscopy_tpu_torch.train.fixmatch import FixMatch
 from endoscopy_tpu_torch.train.supervised import SupLearning
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 from torch_port_checks import path_e
@@ -524,6 +529,115 @@ def check_supervised_steps_match_jax():
     for triplet, mix in ((False, False), (False, True), (True, False)):
         for accum in (1, 2):
             _sup_step(triplet, accum, mix, seed=20 + 2 * accum + triplet)
+
+
+class _Given:
+    """A model for ``create_train_state`` whose ``init`` returns the given
+    variables (no flax init compile)."""
+
+    def __init__(self, variables):
+        self.variables = variables
+
+    def init(self, key, x, **kw):
+        return self.variables
+
+
+@functools.cache
+def _jax_margin_trainer():
+    """The JAX supervised trainer with ``MODEL.MARGIN: arcface`` (the
+    bias-free head) under ``DATA.IS_REPROD`` (SGD; one compiled step),
+    from the plain branch's initial state without the head's bias."""
+    cfg = _jax_config(_sup_overrides())
+    cfg.MODEL.MARGIN = "arcface"
+    cfg.DATA.IS_REPROD = True
+    base = _jax_sup_base(False).state
+    params = dict(base.params)
+    params["head"] = {"fc": {"kernel": base.params["head"]["fc"]["kernel"]}}
+    trainer = JaxSupLearning(model=jax_build_model(cfg), opt_func="SGD")
+    trainer.train_dl = trainer.valid_dl = None
+    create = jax_state.create_train_state
+    given = _Given({"params": params, "batch_stats": base.batch_stats})
+    with mock.patch.object(jax_state, "create_train_state",
+                           lambda model, *a, **k: create(given, *a, **k)):
+        trainer.get_config(cfg, cls_num_list=[3, 2, 1, 4],
+                           labeled_targets=LABELED)
+    return trainer
+
+
+def _port_margin_trainer(jt):
+    cfg = default_config(_sup_overrides())
+    cfg.MODEL.MARGIN = "arcface"
+    cfg.DATA.IS_REPROD = True
+    model = build_model(cfg)
+    assert model.head.fc.bias is None
+    model.load_state_dict(_port_state(jt.state.params, jt.state.batch_stats),
+                          strict=True)
+    trainer = SupLearning(model, "SGD", device="cpu")
+    trainer.train_dl = None
+    trainer.get_config(cfg, cls_num_list=[3, 2, 1, 4], labeled_targets=LABELED)
+    return cfg, trainer
+
+
+def check_margin_reproduce_step_matches_jax():
+    """One supervised step of the margin branch (arcface on the backbone's
+    features and the bias-free head's kernel, class weights) under
+    ``DATA.IS_REPROD`` against JAX ``_train_step``, on the reproduce view
+    JAX drew: the loss 1e-5 relative, the state at ``train.py``'s step
+    bounds. The port's ``_train_step`` takes the reproduce view under
+    ``IS_REPROD``; the other trainers refuse it, as in JAX."""
+    u8, t = _step_batch(31, False)
+    w = jcls.balanced_class_weights(LABELED, NUM_CLASSES).astype(F32)
+    key = jax.random.key(31)
+    jt = _jax_margin_trainer()
+    start = jt.state
+    jstate, jloss, _ = jt._train_step(start, jnp.asarray(u8), jnp.asarray(t),
+                                      jnp.asarray(w), key)
+    k_aug, _ = jax.random.split(key)
+    x = jviews.reproduce_train_view(jnp.asarray(u8), k_aug, IMG, jnp.float32)
+    cfg, port = _port_margin_trainer(jt)
+    loss, aux = port._train_micro(
+        [(torch.from_numpy(np.array(x)), torch.from_numpy(t).long(), None)],
+        torch.from_numpy(w))
+    assert aux == ()
+    _close(float(loss), float(jloss), rtol=1e-5, what="margin loss")
+    _compare_state(port, jstate, "SGD", (), start)
+
+    calls = []
+    view = supervised_mod.reproduce_train_view
+    with mock.patch.object(supervised_mod, "reproduce_train_view",
+                           lambda *a, **k: calls.append(1) or view(*a, **k)), \
+            mock.patch.object(supervised_mod, "labeled_train_view",
+                              None):
+        loss, _ = port._train_step(u8, t, torch.from_numpy(w))
+    assert calls == [1] and np.isfinite(float(loss))
+    with pytest.raises(ValueError, match="IS_REPROD"):
+        FixMatch(build_model(cfg), "SGD", device="cpu").get_config(
+            cfg, labeled_targets=LABELED)
+
+
+def check_reproduce_artifact_matches_jax():
+    """The artifact of a model trained under ``DATA.IS_REPROD`` (the margin
+    trainer's, bias-free head) serves the reproduce eval view: its
+    probabilities within 1e-5 of the JAX ``make_infer_fn(...,
+    is_reprod=True)`` from the same weights, and of the port trainer's
+    evaluation forward."""
+    jt = _jax_margin_trainer()
+    cfg, port = _port_margin_trainer(jt)
+    u8 = np.random.default_rng(9).integers(0, 256, (5, CANON, CANON, 3)
+                                           ).astype(np.uint8)
+    ref = jexport.make_infer_fn(jt.model, jt.state.params,
+                                jt.state.batch_stats, IMG, jnp.float32,
+                                is_reprod=True)
+    want = np.asarray(jax.jit(ref)(jnp.asarray(u8)))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m.pt")
+        export.export_model(cfg, port.state.model.state_dict(), path)
+        infer = export.load_exported(path, device="cpu")
+        got = infer(u8)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    _, _, probs = port._eval_step(port.state.model.eval(), u8,
+                                  np.zeros(5, np.int64), np.ones(5, bool))
+    np.testing.assert_allclose(probs.numpy(), want, rtol=0, atol=1e-5)
 
 
 def check_triplet_batch_matches_jax():

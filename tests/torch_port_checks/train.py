@@ -50,6 +50,7 @@ from endoscopy_tpu.config.loader import default_config as jax_default_config
 from endoscopy_tpu.config.loader import get_config as jax_get_config
 from endoscopy_tpu.losses import classification as jcls
 from endoscopy_tpu.losses import consistency as jcons
+from endoscopy_tpu.losses import margin as jmargin
 from endoscopy_tpu.models import build_model as jax_build_model
 from endoscopy_tpu.optim import optimizers as jopt
 from endoscopy_tpu.optim import schedules as jsched
@@ -61,6 +62,7 @@ from endoscopy_tpu_torch.aug import ops, views
 from endoscopy_tpu_torch.aug.views import labeled_train_view
 from endoscopy_tpu_torch.ckpt.convert import from_jax_params
 from endoscopy_tpu_torch.config.loader import default_config
+from endoscopy_tpu_torch.losses import classification, margin
 from endoscopy_tpu_torch.losses import (balanced_class_weights, ce_loss,
                                         consistency_loss, cross_entropy,
                                         poly_loss, soft_ce_loss)
@@ -161,12 +163,110 @@ def check_losses_match_jax():
     assert leaves[0].grad is None and not np.asarray(gj[0]).any()
     for leaf, g in zip(leaves[1:], gj[1:]):
         _close(leaf.grad.numpy(), g, rtol=1e-6, atol=1e-7)
-    for kw in ({"type_loss": "focal"}, {"type_loss": "ldam",
-                                        "cls_num_list": [1] * c}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ce_loss(ts, tt, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        consistency_loss(tw, ts, margin_loss_fn=lambda *a: 0.0)
+    # the dispatcher's focal and LDAM branches, and the consistency
+    # loss's margin path (check_loss_branches_match_jax holds each loss)
+    for kw in ({"type_loss": "focal"},
+               {"type_loss": "ldam", "cls_num_list": [4, 3, 2, 2, 1, 1]}):
+        _close(ce_loss(ts, tt, w_t, reduction="mean", **kw).numpy(),
+               jcls.ce_loss(js, jt, w_j, reduction="mean", **kw),
+               rtol=1e-6, atol=1e-7)
+    fc = rng.normal(0, 0.5, (c, c)).astype(F32)
+    lu, mask = consistency_loss(tw, ts, p_cutoff=cutoff, margin_loss_fn=(
+        lambda f, y, m: margin.angular_penalty_loss(
+            f, y, torch.tensor(fc), "cosface", mask=m)))
+    jlu, jmask = jcons.consistency_loss(jw, js, p_cutoff=cutoff,
+                                        margin_loss_fn=(
+        lambda f, y, m: jmargin.angular_penalty_loss(
+            f, y, jnp.asarray(fc.T), "cosface", mask=m)))
+    assert 0.0 < float(mask) < 1.0
+    for got, want in ((lu, jlu), (mask, jmask)):
+        _close(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+def _value_and_grads(fn_t, fn_j, arrays):
+    """``fn`` of float32 ``arrays`` and its gradient with respect to each,
+    in the port (``fn_t``) and in JAX (``fn_j``; the sum of its output for
+    the gradient in both)."""
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+    out = fn_t(*leaves)
+    out.sum().backward()
+    jout = fn_j(*map(jnp.asarray, arrays))
+    jgrads = jax.grad(lambda *a: jnp.sum(fn_j(*a)),
+                      argnums=tuple(range(len(arrays))))(
+        *map(jnp.asarray, arrays))
+    return ([out.detach().numpy()] + [x.grad.numpy() for x in leaves],
+            [np.asarray(jout)] + [np.asarray(g) for g in jgrads])
+
+
+def check_loss_branches_match_jax():
+    """The losses no preset reaches, against JAX on the same logits:
+    ``focal_loss`` (gamma 1 and 2), ``ldam_loss``, ``label_smoothing_loss``
+    and ``poly_bce_loss`` under each reduction, with and without class
+    weights, and ``angular_penalty_loss`` of every ``loss_type`` (with
+    class weights and a mask, the fc normalized or not): the losses
+    (per sample where the function gives them) and their gradients within
+    1e-6 of each tensor's largest magnitude (an arcface gradient element
+    that cancels to 0.013 differs by 6e-7 of 4.7: float32 sums in another
+    order)."""
+    rng = np.random.default_rng(3)
+    n, c, d = 16, 6, 16  # check_losses_match_jax's shapes: JAX's op cache
+    logits = rng.normal(0, 2, (n, c)).astype(F32)
+    targets = rng.integers(0, c, n)
+    targets[:c] = np.arange(c)
+    weights = rng.uniform(0.5, 2.0, c).astype(F32)
+    onehot = np.eye(c, dtype=F32)[targets]
+    tt, jt = torch.tensor(targets), jnp.asarray(targets)
+    cases = []
+    for wt in (None, weights):
+        w_t = None if wt is None else torch.tensor(wt)
+        w_j = None if wt is None else jnp.asarray(wt)
+        for gamma in (1.0, 2.0):
+            cases.append((lambda z, g=gamma, w=w_t: classification.focal_loss(
+                z, tt, g, w), lambda z, g=gamma, w=w_j: jcls.focal_loss(
+                z, jt, g, w)))
+        cls_num = [9, 5, 3, 2, 1, 1]
+        cases.append((lambda z, w=w_t: classification.ldam_loss(
+            z, tt, cls_num, weight=w), lambda z, w=w_j: jcls.ldam_loss(
+            z, jt, cls_num, weight=w)))
+        for red in ("none", "mean", "sum"):
+            cases.append((lambda z, r=red, w=w_t:
+                          classification.label_smoothing_loss(
+                              z, tt, 0.1, w, r),
+                          lambda z, r=red, w=w_j: jcls.label_smoothing_loss(
+                              z, jt, 0.1, w, r)))
+    for red in ("none", "mean", "sum"):
+        cases.append((lambda z, r=red: classification.poly_bce_loss(
+            z, torch.tensor(onehot), 1.0, r),
+            lambda z, r=red: jcls.poly_bce_loss(z, jnp.asarray(onehot), 1.0,
+                                                r)))
+    cases.append((lambda z: ce_loss(z, tt, torch.tensor(weights),
+                                    reduction="mean", type_loss="focal"),
+                  lambda z: jcls.ce_loss(z, jt, jnp.asarray(weights),
+                                         reduction="mean",
+                                         type_loss="focal")))
+    results = [_value_and_grads(ft, fj, [logits]) for ft, fj in cases]
+
+    feats = rng.normal(0, 1, (n, d)).astype(F32)
+    fc = rng.normal(0, 0.3, (c, d)).astype(F32)
+    mask = (rng.uniform(size=n) < 0.7).astype(F32)
+    for loss_type in ("arcface", "sphereface", "cosface", "acloss"):
+        for norm in (False, True):
+            kw = dict(loss_type=loss_type, normalize_weights=norm)
+            results.append(_value_and_grads(
+                lambda f, w, kw=kw: margin.angular_penalty_loss(
+                    f, tt, w, cls_weight=torch.tensor(weights),
+                    mask=torch.tensor(mask), **kw),
+                lambda f, w, kw=kw: jmargin.angular_penalty_loss(
+                    f, jt, w.T, cls_weight=jnp.asarray(weights),
+                    mask=jnp.asarray(mask), **kw),
+                [feats, fc]))
+    g = np.linspace(0.0, 3.0, 7, dtype=F32)
+    results.append(([margin.g_theta(torch.tensor(g)).numpy()],
+                    [np.asarray(jmargin.g_theta(jnp.asarray(g)))]))
+    for got, want in results:
+        for a, b in zip(got, want):
+            assert a.shape == b.shape, (a.shape, b.shape)
+            _close(a, b, rtol=1e-6, atol=1e-6 * float(np.abs(b).max()))
 
 
 def check_schedules_match_jax():
@@ -599,8 +699,16 @@ def check_path_c_configs_match_yaml():
 
 
 def check_unported_settings_point_to_roadmap():
+    """``DATA.IS_REPROD`` selects the supervised trainer's views; FixMatch
+    refuses it with the JAX trainer's ``ValueError`` (the views would
+    silently mismatch)."""
     cfg = default_config(OVERRIDES)
     cfg.DATA.IS_REPROD = True
     trainer = FixMatch(build_model(cfg), "Adam", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="IS_REPROD"):
         trainer.get_config(cfg)
+    jcfg = _jax_config(OVERRIDES)
+    jcfg.DATA.IS_REPROD = True
+    with pytest.raises(ValueError, match="IS_REPROD"):
+        JaxFixMatch(model=jax_build_model(jcfg), opt_func="Adam").get_config(
+            jcfg, labeled_targets=LABELED)

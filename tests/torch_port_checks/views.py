@@ -116,3 +116,45 @@ def check_fixmatch_views_from_generator_are_seeded():
     with pytest.raises(ValueError, match="tops with lefts"):
         views.fixmatch_views(u8, IMG, generator=torch.Generator(),
                              device="cpu", tops=np.zeros(B, np.int32))
+
+
+def _jax_reproduce_draws(key, n):
+    """The flips and angles ``jax reproduce_train_view`` draws from
+    ``key`` for ``n`` images (aug/views.py:256-263)."""
+    hflips, vflips, angles = [], [], []
+    for k in jax.random.split(key, n):
+        k_h, k_v, k_rot = jax.random.split(k, 3)
+        hflips.append(bool(jax.random.uniform(k_h) < 0.5))
+        vflips.append(bool(jax.random.uniform(k_v) < 0.5))
+        angles.append(float(jax.random.uniform(k_rot, (), minval=-90.0,
+                                               maxval=90.0)))
+    return (torch.tensor(hflips), torch.tensor(vflips),
+            torch.tensor(angles, dtype=torch.float32))
+
+
+def check_reproduce_views_match_jax():
+    """The paper-reproduction views (``DATA.IS_REPROD``) on the JAX draws:
+    the eval view (a downsizing and an upsizing resize, which antialiases
+    only when it shrinks) and the train view (the resize, both flips and a
+    ±90° rotation), float32, within 1e-5 (the resize's weighted sums in
+    another order; the rotation's integer shifts are exact)."""
+    key = jax.random.key(7)
+    n = 8
+    u8 = np.random.default_rng(5).integers(0, 256, (n, CANON, CANON, 3)
+                                           ).astype(np.uint8)
+    for size in (IMG, CANON + 6):
+        got = views.reproduce_eval_view(u8, size, device="cpu").numpy()
+        want = np.asarray(jviews.reproduce_eval_view(jnp.asarray(u8), size))
+        assert got.shape == want.shape == (n, size, size, 3)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    hflips, vflips, angles = _jax_reproduce_draws(key, n)
+    assert 0 < int(hflips.sum()) < n and 0 < int(vflips.sum()) < n
+    got = views.reproduce_train_view(u8, IMG, device="cpu", hflips=hflips,
+                                     vflips=vflips, angles=angles).numpy()
+    want = np.asarray(jviews.reproduce_train_view(jnp.asarray(u8), key, IMG))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert (got == -1.0).any()  # the rotation's black corners
+    drawn = views.reproduce_draws(torch.Generator().manual_seed(0), 1000)
+    assert 0.4 < float(drawn["hflips"].float().mean()) < 0.6
+    assert -90.0 <= float(drawn["angles"].min()) < -80.0 < 80.0 < float(
+        drawn["angles"].max()) < 90.0
