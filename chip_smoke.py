@@ -280,12 +280,39 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    N3 starts before path M and runs beside it (it times nothing; M's two
    timed steps a model are a spread), N1 and N2 after M, alone.
 
-18. path O0: whether the machine can build the native JPEG loader's core
-   (``endoscopy_tpu_torch/data/native_loader.py``): g++'s version, the
-   ``jpeglib.h`` the compiler finds, the ``libjpeg.so`` files ``ldconfig``
-   lists, and with the header the build's seconds. The card's machine has
-   had no libjpeg headers (PERF.md §7), so paths O1-O3 (``cli/learn.py`` on
-   JPEG files) are not in the script yet (ROADMAP.md).
+18. path O: ``cli/learn.py`` on JPEG files, decoded on the card
+   (``endoscopy_tpu_torch/data/jpeg_card.py``: nvJPEG and the resize
+   kernel; the bytes-only core of ``data/native_loader.py``; helpers and
+   the fixture in ``tests/torch_port_checks/path_o.py`` and
+   ``jpeg_fixture/``). The build of ``jpeg_card`` and the bytes-only core
+   runs in a process of its own, started beside the RandAugment kernel's.
+   O0: g++, ``jpeglib.h`` and ``libjpeg`` (the CPU route's; none on the
+   card's machine so far), ``nvjpeg.h``, ``libnvjpeg`` and nvJPEG's
+   version, each backend's creation and decode rate on 224 copies of a
+   fixture file, the fixed backend (``jpeg_card.BACKEND``), the build
+   seconds. O1: on the fixture (the generator's 4:2:0 at quality 92, a
+   4:4:4, a grayscale, a 161 x 127 and a cv2 quality-95 file), the card's
+   decode at 134 px against libjpeg's (the core's ``decode_files`` on the
+   build host): a mean |d| below 4.0 per file, the max and the share above
+   4 printed; the server's card decode at 224 px against cv2's within the
+   same bound; the resize kernel against its plain version on the same
+   decoded pixels, 0; a file cut to 100 bytes, an empty file and a PNG
+   named ``.jpg``: the stream skips each and warns, ``sample()`` and
+   ``decode_files`` raise, an all-corrupt manifest raises. O2: the
+   generator on the card with ``synthetic_tpu_e2e.yaml``'s header
+   arguments (928 JPEGs at 160 px), two single-thread loaders with one
+   seed identical for 4 batches (the second read through two iterators,
+   as two epochs read it) and ``sample()`` = ``decode_files``, the
+   32- and 224-image streams' images/s at 134 px, nvJPEG's decode of the
+   224-image batch on 1 and 2 threads, the resize kernel on it against its
+   plain version, its bound and ``F.interpolate``. O3: ``run_config`` on
+   those files (``synthetic_tpu_e2e.yaml``'s fields with ``DATA.LOADER:
+   native``: ResNet-50, 112 px, 480 images a step, 3 epochs of 64 steps,
+   an evaluation and a checkpoint after each epoch, EMA decay 0.9): 192
+   kernel launches in 192 steps, the resize kernel at least twice a step,
+   the train loss falling, the teacher's macro-F1 >= 0.9 after epoch 3,
+   ``epoch_1..3``; the step (wall / steps) against path C's and the
+   host's wait on the loaders a step.
 19. path P: the supervised branches no preset reaches
    (``tests/torch_port_checks/path_p.py``): the margin step (arcface, the
    bias-free head), the focal, LDAM, label-smoothing and poly-BCE losses,
@@ -295,9 +322,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    each loss). P2: each branch at ``kaggle_supervised_patho``'s width (32
    images at 224 px, bf16, Adam), one warm-up and two timed steps. No
    kernel runs on it.
+20. path Q: ``cli/learn.py --preview`` (``prepare_trainer``'s ``preview``,
+   ``eval/visualize.py::preview_views``) on path O's files with
+   ``kaggle_semisupervised_real_3_1``'s fields (FixMatch) and
+   ``..._real_1``'s (CoMatch): one kernel launch each, the returned views
+   equal to direct ``fixmatch_views`` / ``comatch_views`` calls with the
+   same generator, and whether the PNG was written (matplotlib is not
+   promised on the card's machine).
 
 The last lines are the card's name and power limit, one ``{"kernels": ...}``
-JSON line and ``{"ok": true, "device": {...}}``.
+JSON line (the RandAugment kernel and the JPEG route's resize kernel) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -318,7 +353,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_port_checks import (path_c, path_d, path_e, path_f,  # noqa: E402
                                path_g, path_h, path_i, path_j, path_k,
-                               path_l, path_p)
+                               path_l, path_o, path_p)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 
@@ -1828,42 +1863,492 @@ def supervised_step_matches_cpu(seed: int):
     return out
 
 
-def phase_native_probe():
-    """Path O0: whether this machine can build the native loader's core
-    (``endoscopy_tpu_torch/data/native_loader.py``: g++ with libjpeg's
-    headers and library). Prints g++'s version, the ``jpeglib.h`` the
-    compiler finds and the ``libjpeg.so`` files ``ldconfig`` lists; with
-    the header there, builds the core and prints its seconds. Paths O1-O3
-    (the generator, the loaders and ``cli/learn.py`` on JPEG files) need
-    that build and are not in this script yet (ROADMAP.md)."""
+JPEG_BUILD_CODE = (
+    "import sys, time; sys.path.insert(0, sys.argv[1]); t0 = time.perf_counter(); "
+    "from endoscopy_tpu_torch.data import jpeg_card, native_loader; "
+    "jpeg_card.build(verbose=True); t1 = time.perf_counter(); "
+    "native_loader.build_library(bytes_only=True); "
+    "print(f'BUILD_S {t1 - t0:.3f} {time.perf_counter() - t1:.3f}')")
+
+
+def start_jpeg_build():
+    """Path O's builds in a process of their own, started beside the
+    RandAugment kernel's: ``jpeg_card`` (``torch.utils.cpp_extension.load``,
+    nvcc and g++ on PyTorch's headers) and the bytes-only loader core."""
+    root = Path(__file__).resolve().parent
+    return subprocess.Popen([sys.executable, "-c", JPEG_BUILD_CODE, str(root)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def finish_jpeg_build(proc) -> dict:
+    """The build process's output, printed; its seconds. A failed build
+    fails the run."""
+    out, _ = proc.communicate(timeout=900)
+    print(out, flush=True)
+    if proc.returncode != 0:
+        fail(f"path O0: building jpeg_card or the bytes-only core failed "
+             f"(exit {proc.returncode})")
+    line = next(x for x in out.splitlines() if x.startswith("BUILD_S"))
+    jpeg_s, core_s = (float(v) for v in line.split()[1:])
+    return {"jpeg_card_build_s": jpeg_s, "bytes_core_build_s": core_s}
+
+
+def _header_path(header: str, *include: str):
+    """The path g++ finds for ``header`` (with ``include`` dirs), or None."""
     import shutil
 
     gxx = shutil.which("g++")
-    out = {"gxx": None, "jpeglib_h": None, "libjpeg": [], "build_s": None}
-    if gxx:
-        out["gxx"] = subprocess.run([gxx, "--version"], capture_output=True,
-                                    text=True).stdout.splitlines()[0]
-        deps = subprocess.run([gxx, "-M", "-x", "c++", "-"],
-                              input="#include <jpeglib.h>\n",
-                              capture_output=True, text=True)
-        if deps.returncode == 0:
-            out["jpeglib_h"] = next(w for w in deps.stdout.split()
-                                    if w.endswith("jpeglib.h"))
+    if not gxx:
+        return None
+    deps = subprocess.run(
+        [gxx, "-M", "-x", "c++", *(f"-I{d}" for d in include), "-"],
+        input=f"#include <{header}>\n", capture_output=True, text=True)
+    if deps.returncode != 0:
+        return None
+    return next(w for w in deps.stdout.split() if w.endswith(header))
+
+
+def phase_jpeg_probe(builds: dict):
+    """Path O0: what this machine offers for JPEG files. g++'s version,
+    the ``jpeglib.h`` and ``libjpeg.so`` of the CPU route (none on the
+    card's machine so far), ``nvjpeg.h`` and ``libnvjpeg`` with nvJPEG's
+    version, each nvJPEG backend's creation and decode of 224 copies of the
+    fixture's generator file on one thread, the backend the port fixes
+    (``jpeg_card.BACKEND``) and the build seconds."""
+    import glob
+    import shutil
+
+    from endoscopy_tpu_torch.data import jpeg_card
+
+    gxx = shutil.which("g++")
     ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
-    listed = subprocess.run([ldconfig, "-p"], capture_output=True, text=True)
-    out["libjpeg"] = sorted({line.split("=>")[-1].strip()
-                             for line in listed.stdout.splitlines()
-                             if "libjpeg.so" in line})
-    if out["jpeglib_h"]:
-        from endoscopy_tpu_torch.data import native_loader
+    listed = subprocess.run([ldconfig, "-p"], capture_output=True,
+                            text=True).stdout.splitlines()
+
+    def libs(name):
+        found = {line.split("=>")[-1].strip() for line in listed
+                 if name in line}
+        found.update(glob.glob(f"/usr/local/cuda/lib64/{name}*"))
+        return sorted(found)
+
+    out = {"gxx": subprocess.run([gxx, "--version"], capture_output=True,
+                                 text=True).stdout.splitlines()[0]
+           if gxx else None,
+           "jpeglib_h": _header_path("jpeglib.h"),
+           "libjpeg": libs("libjpeg.so"),
+           "nvjpeg_h": _header_path("nvjpeg.h", "/usr/local/cuda/include"),
+           "libnvjpeg": libs("libnvjpeg.so"),
+           "nvjpeg_version": ".".join(map(str, jpeg_card.version())),
+           "backend": jpeg_card.BACKEND, **builds}
+    payload = (path_o.FIXTURE / path_o.FIXTURE_FILES[0]).read_bytes()
+    probe = jpeg_card.probe_backends([payload] * BATCH, repeats=3)
+    out["backends"] = {
+        name: {"create_status": c, "decode_status": d,
+               "images_per_s": BATCH / s if s else None}
+        for name, (c, d, s) in probe.items()}
+    print(f"path O0: g++ {out['gxx']!r}; jpeglib.h {out['jpeglib_h']}, "
+          f"libjpeg {out['libjpeg']} (the CPU route's libjpeg core "
+          + ("can" if out["jpeglib_h"] else "cannot") + " be built here); "
+          f"nvjpeg.h {out['nvjpeg_h']}, libnvjpeg {out['libnvjpeg']}, nvJPEG "
+          f"{out['nvjpeg_version']}; backends on {BATCH} copies of "
+          f"{path_o.FIXTURE_FILES[0]} (create status, decode status, "
+          f"images/s on one thread): "
+          + ", ".join(f"{k} {v['create_status']}, {v['decode_status']}, "
+                      + (f"{v['images_per_s']:.0f}" if v["images_per_s"]
+                         else "-") for k, v in out["backends"].items())
+          + f"; the port's fixed backend: {out['backend']}; built jpeg_card "
+          f"in {builds['jpeg_card_build_s']:.1f} s and the bytes-only core in "
+          f"{builds['bytes_core_build_s']:.2f} s", flush=True)
+    used = out["backends"][out["backend"]]
+    if used["create_status"] or used["decode_status"]:
+        fail(f"path O0: the fixed nvJPEG backend {out['backend']} does not "
+             f"decode here: {used}")
+    return out
+
+
+def _diff_stats(got, want) -> dict:
+    import torch
+
+    d = (got.cpu().to(torch.int32) - torch.as_tensor(want).to(torch.int32)
+         ).abs().float()
+    return {"mean": float(d.mean()), "max": float(d.max()),
+            "share_above_4": float((d > 4).float().mean())}
+
+
+def _corrupt_copies(tmp: Path, files, png: bytes):
+    """Copies of ``files`` in ``tmp``, with row 1 cut to 100 bytes, row 3
+    empty and row 5 a PNG named ``.jpg``: ``(paths, bad rows)``."""
+    paths = []
+    for i, f in enumerate(files):
+        data = Path(f).read_bytes()
+        data = {1: data[:100], 3: b"", 5: png}.get(i, data)
+        dst = tmp / f"{i:03d}.jpg"
+        dst.write_bytes(data)
+        paths.append(str(dst))
+    return paths, (1, 3, 5)
+
+
+def phase_jpeg_decode(out_dir: Path):
+    """Path O1: the card's JPEG route against libjpeg's and cv2's pixels
+    on the committed fixture, the resize kernel against its plain version,
+    and the corrupt-input contract on the card."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from endoscopy_tpu_torch.data import jpeg_card, native_loader
+    from endoscopy_tpu_torch.data.manifest import Manifest
+    from endoscopy_tpu_torch.serve.server import card_decoder
+
+    fix = path_o.FIXTURE
+    want = np.load(fix / "expected.npz")
+    side = path_o.FIXTURE_SIDE
+    out = {"files": {}, "serve": {}}
+    kernel_err = 0.0
+    for i, name in enumerate(path_o.FIXTURE_FILES):
+        flat, offsets, hw, status = jpeg_card.decode_raw(
+            [(fix / name).read_bytes()])
+        got = jpeg_card.resize_bilinear(flat, offsets, hw, side)
+        plain = jpeg_card.resize_bilinear_plain(flat, offsets, hw, side)
+        err = float((got.int() - plain.int()).abs().max())
+        kernel_err = max(kernel_err, err)
+        out["files"][name] = {"hw": hw[0].tolist(), "status": status[0],
+                              "kernel_max_abs_err": err,
+                              **_diff_stats(got[0], want["libjpeg_134"][i])}
+    decode = card_decoder(torch.device("cuda"))
+    for j, name in enumerate(path_o.FIXTURE_CV2_FILES):
+        got = torch.from_numpy(decode((fix / name).read_bytes(),
+                                      path_o.FIXTURE_SERVE_SIDE))
+        out["serve"][name] = _diff_stats(got, want["cv2_224"][j])
+    for name, r in out["files"].items():
+        print(f"path O1: {name} {r['hw']} at {side} px, nvJPEG ({jpeg_card.BACKEND}) "
+              f"+ the resize kernel against libjpeg's core: mean |d| "
+              f"{r['mean']:.4f}, max {r['max']:.0f}, share above 4 "
+              f"{r['share_above_4']:.5f}; the kernel against its plain "
+              f"version on the same decoded pixels {r['kernel_max_abs_err']}",
+              flush=True)
+    for name, r in out["serve"].items():
+        print(f"path O1: the server's card decode of {name} at "
+              f"{path_o.FIXTURE_SERVE_SIDE} px against cv2's: mean |d| "
+              f"{r['mean']:.4f}, max {r['max']:.0f}, share above 4 "
+              f"{r['share_above_4']:.5f}", flush=True)
+    worst = max(r["mean"] for r in [*out["files"].values(),
+                                    *out["serve"].values()])
+    if worst >= jpeg_card.DECODE_MEAN_LSB:
+        fail(f"path O1: a mean |d| of {worst} against libjpeg's or cv2's "
+             f"pixels ({jpeg_card.DECODE_MEAN_LSB} allowed)")
+    if kernel_err:
+        fail(f"path O1: the resize kernel is {kernel_err} from its plain "
+             "version")
+
+    # the corrupt-input contract on the card
+    tmp = out_dir / "corrupt"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    files = [str(fix / f) for f in path_o.FIXTURE_FILES] * 2
+    paths, bad = _corrupt_copies(tmp, files,
+                                 (fix / path_o.FIXTURE_PNG).read_bytes())
+    m = Manifest(paths=np.array(paths, dtype=object),
+                 targets=np.arange(len(paths), dtype=np.int64))
+    loader = native_loader.NativeCanonicalLoader(m, len(paths) - len(bad),
+                                                 side, num_threads=1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        x, t = next(iter(loader))
+    skipped = [str(w.message) for w in caught
+               if "skipped" in str(w.message)]
+    raised = []
+    for fn in (lambda: loader.sample(np.array([0, bad[0]])),
+               lambda: native_loader.decode_files([paths[0], paths[bad[2]]],
+                                                  side, "cuda")):
+        try:
+            fn()
+        except RuntimeError as exc:
+            raised.append(str(exc))
+    loader.close()
+    for p in paths:
+        Path(p).write_bytes(b"")
+    all_bad = native_loader.NativeCanonicalLoader(m, 4, side, num_threads=1)
+    try:
+        next(iter(all_bad))
+        all_raised = None
+    except RuntimeError as exc:
+        all_raised = str(exc)
+    all_bad.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["corrupt"] = {"batch_rows": sorted(t.tolist()), "warnings": skipped,
+                      "raised": raised, "all_corrupt": all_raised}
+    print(f"path O1: corrupt files on the card (a file cut to 100 bytes, an "
+          f"empty one, a PNG named .jpg): the stream's batch rows "
+          f"{sorted(t.tolist())}, warned {skipped[:1]}; sample() and "
+          f"decode_files raised {[r[:70] for r in raised]}; an all-corrupt "
+          f"manifest raised {all_raised!r}", flush=True)
+    if (set(t.tolist()) & set(bad) or not skipped or len(raised) != 2
+            or not all_raised or x.device.type != "cuda"):
+        fail("path O1: the card's corrupt-input contract does not hold")
+    out["kernel_max_abs_err"] = kernel_err
+    return out
+
+
+def phase_jpeg_loaders(seed: int, out_dir: Path):
+    """Path O2: the generator on the card with the YAML header's
+    arguments, two single-thread loaders against each other and
+    ``decode_files``, each stream's images/s at 134 px, and the resize
+    kernel at the 224-image stream's shape against its plain version, its
+    bound, ``F.interpolate`` and nvJPEG's decode of the same batch."""
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from endoscopy_tpu_torch.cli.learn import build_data
+    from endoscopy_tpu_torch.data import jpeg_card, native_loader
+    from endoscopy_tpu_torch.data.pipeline import canonical_size
+    from endoscopy_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    root = out_dir / "synth"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_synthetic_dataset(str(root), seed=seed, **path_o.GENERATOR)
+    gen_s = time.perf_counter() - t0
+    n_files = sum(path_o.GENERATOR[k] for k in ("n_train", "n_valid",
+                                                 "n_unlabeled"))
+    cfg = path_o.config(str(root))
+    size = canonical_size(cfg)
+    (lab, unl), valid, _, _ = build_data(cfg, "cuda")
+    valid.close()
+    manifests = {"labeled": lab.manifest, "unlabeled": unl.manifest}
+    streams = {"labeled": lab.batch_size, "unlabeled": unl.batch_size}
+    for dl in (lab, unl):
+        dl.close()
+
+    # two single-thread loaders with one seed, the second read through two
+    # iterators (two epochs), and sample() = decode_files
+    pair = [native_loader.NativeCanonicalLoader(
+        manifests["unlabeled"], streams["labeled"], size, seed=seed,
+        num_threads=1) for _ in range(2)]
+    first = [b for _, b in zip(range(4), pair[0])]
+    second = [b for _, b in zip(range(2), pair[1])]
+    second += [b for _, b in zip(range(2), pair[1])]
+    same = all(torch.equal(x, y) and (t == u).all()
+               for (x, t), (y, u) in zip(first, second))
+    rows = np.array([3, 0, 3, len(manifests["unlabeled"]) - 1])
+    sampled = pair[0].sample(rows)
+    direct = native_loader.decode_files(manifests["unlabeled"].paths[rows],
+                                        size, "cuda")
+    for dl in pair:
+        dl.close()
+
+    rates = {}
+    workers = int(cfg.DATA.NUM_WORKERS)
+    for name, m in manifests.items():
+        dl = native_loader.NativeCanonicalLoader(m, streams[name], size,
+                                                 seed=seed, num_threads=workers)
+        it = iter(dl)
+        next(it)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        native_loader.build_library()
-        out["build_s"] = time.perf_counter() - t0
-    print(f"path O0: g++ {out['gxx']!r}; jpeglib.h {out['jpeglib_h']}; "
-          f"libjpeg {out['libjpeg']}; the native loader's core "
-          + (f"built in {out['build_s']:.2f} s" if out["build_s"] is not None
-             else "cannot be built here (no jpeglib.h); paths O1-O3 not run")
-          , flush=True)
+        n = 10
+        for _ in range(n):
+            next(it)
+        torch.cuda.synchronize()
+        rates[name] = n * streams[name] / (time.perf_counter() - t0)
+        dl.close()
+
+    # the resize kernel at the 224-image stream's shape
+    files = list(manifests["unlabeled"].paths[np.arange(streams["unlabeled"])
+                                              % len(manifests["unlabeled"])])
+    payloads = jpeg_card.read_files(files)
+    decode_ms = {}
+    for threads in (1, workers):
+        jpeg_card.decode_raw(payloads, threads=threads)
+        decode_ms[threads] = host_ms(
+            lambda: jpeg_card.decode_raw(payloads, threads=threads), iters=3)
+    flat, offsets, hw, _ = jpeg_card.decode_raw(payloads)
+    kern = jpeg_card.resize_bilinear(flat, offsets, hw, size)
+    plain = jpeg_card.resize_bilinear_plain(flat, offsets, hw, size)
+    err = float((kern.int() - plain.int()).abs().max())
+    ms = cuda_ms(lambda: jpeg_card.resize_bilinear(flat, offsets, hw, size),
+                 iters=50)
+    plain_ms = cuda_ms(lambda: jpeg_card.resize_bilinear_plain(
+        flat, offsets, hw, size), iters=2, warmup=1)
+    h, w = (int(v) for v in hw[0].tolist())
+    as_float = flat[:len(files) * h * w * 3].view(len(files), h, w, 3
+                                                  ).permute(0, 3, 1, 2).float()
+    library_ms = cuda_ms(lambda: F.interpolate(
+        as_float, size=(size, size), mode="bilinear", align_corners=False),
+        iters=50)
+    bytes_moved = int(hw.prod(1).sum()) * 3 + len(files) * size * size * 3
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    out = {"generator_s": gen_s, "files": n_files, "identical": same,
+           "sample_equals_decode_files": bool(torch.equal(sampled, direct)),
+           "images_per_s": rates, "decode_ms": decode_ms,
+           "resize": {"shape": [len(files), h, w, size],
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bytes": bytes_moved,
+                      "library_ms": library_ms}}
+    print(f"path O2: the generator wrote {n_files} JPEGs at "
+          f"{path_o.GENERATOR['img_size']} px on the card (nvJPEG) in "
+          f"{gen_s:.2f} s; two single-thread loaders with one seed identical "
+          f"for 4 batches (the second through two iterators): {same}; "
+          f"sample() = decode_files: "
+          f"{out['sample_equals_decode_files']}; images/s at {size} px with "
+          f"{workers} threads: the {streams['labeled']}-image stream "
+          f"{rates['labeled']:.1f}, the {streams['unlabeled']}-image stream "
+          f"{rates['unlabeled']:.1f}; nvJPEG's decode of {len(files)} "
+          f"{h} x {w} files (host clock, waited for): "
+          + ", ".join(f"{v:.3f} ms on {k} thread(s)"
+                      for k, v in decode_ms.items())
+          + f"; the resize kernel {len(files)} x {h} px -> {size} px "
+          f"{ms:.4f} ms (bound {bound_ms:.4f}: {bytes_moved} B at "
+          f"{HBM_BYTES_PER_S:.3g} B/s), its plain version {plain_ms:.3f}, "
+          f"F.interpolate (float32) {library_ms:.4f}; kernel vs plain "
+          f"{err}", flush=True)
+    if not same or not out["sample_equals_decode_files"] or err:
+        fail("path O2: the card's loaders or the resize kernel disagree")
+    return root, out
+
+
+def phase_jpeg_learn(seed: int, out_dir: Path, root: Path, c_step_ms: float):
+    """Path O3: ``cli/learn.py::run_config`` on the generator's JPEG files
+    with ``DATA.LOADER: native`` on the card (``synthetic_tpu_e2e.yaml``'s
+    fields and path O's cuts)."""
+    import shutil
+    from unittest import mock
+
+    import torch
+
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.data import jpeg_card, native_loader
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    shutil.rmtree(out_dir / "ckpt", ignore_errors=True)
+    shutil.rmtree(out_dir / "log", ignore_errors=True)
+    cfg = path_o.config(str(root), str(out_dir / "ckpt"), str(out_dir / "log"))
+    epochs, steps = int(cfg.TRAIN.EPOCHS), int(cfg.TRAIN.EVAL_STEP)
+    waits = []
+    inner_iter = native_loader.NativeCanonicalLoader.__iter__
+
+    def timed_iter(self):  # the host's wait on the loaders
+        it = inner_iter(self)
+        while True:
+            t = time.perf_counter()
+            item = next(it)
+            waits.append(time.perf_counter() - t)
+            yield item
+
+    torch.manual_seed(seed)  # the model's own initialization, seeded
+    rk.randaugment_mc.launches = 0
+    jpeg_card.resize_bilinear.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(native_loader.NativeCanonicalLoader, "__iter__",
+                           timed_iter):
+        trainer, _ = learn.run_config(cfg, device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = rk.randaugment_mc.launches
+    resize_launches = jpeg_card.resize_bilinear.launches
+    for dl in (*trainer.train_dl, trainer.valid_dl):
+        dl.close()
+    log = _log_records(out_dir / "log")
+    train = [r for r in log if "loss/train" in r]
+    valid = [r for r in log if "loss/valid" in r]
+    step_ms = [r["time/epoch_s"] * 1e3 / steps for r in train]
+    saved = sorted(p.name for p in (out_dir / "ckpt").iterdir())
+    wait_ms = float(np.sum(waits)) * 1e3 / (epochs * steps)
+    images = trainer._images_per_step()
+    print(f"path O3: run_config on {root.name}'s JPEG files (DATA.LOADER "
+          f"native, nvJPEG + the resize kernel), {epochs} epochs of {steps} "
+          f"steps of {images} images in {fit_s:.2f} s; step ms (wall / steps) "
+          f"{[round(t, 3) for t in step_ms]} against path C's isolated "
+          f"{c_step_ms:.3f}; images/s "
+          f"{[round(r['throughput/images_per_sec'], 1) for r in train]}; the "
+          f"host's wait on the loaders {wait_ms:.3f} ms a step (median batch "
+          f"{np.median(waits) * 1e3:.3f} ms, max {max(waits) * 1e3:.1f}); "
+          f"train loss {[round(r['loss/train'], 4) for r in train]}, teacher "
+          f"macro-F1 {[r['metric/macro_f1'] for r in valid]}; randaugment_mc "
+          f"launches {launches}, resize launches {resize_launches}; "
+          f"checkpoints {saved}", flush=True)
+    if launches != epochs * steps:
+        fail(f"path O3: {launches} kernel launches in {epochs * steps} steps")
+    if resize_launches < 2 * epochs * steps:
+        fail(f"path O3: {resize_launches} resize launches in "
+             f"{epochs * steps} steps of two streams")
+    if not train[-1]["loss/train"] < train[0]["loss/train"]:
+        fail("path O3: the train loss did not fall from epoch 1 to "
+             f"{epochs}")
+    if len(valid) != epochs or valid[-1]["metric/macro_f1"] < 0.9:
+        fail(f"path O3: macro-F1 {[r['metric/macro_f1'] for r in valid]} "
+             "(0.9 needed after the last epoch)")
+    if saved != [f"epoch_{e}" for e in range(1, epochs + 1)]:
+        fail(f"path O3: checkpoints {saved}")
+    shutil.rmtree(out_dir / "ckpt", ignore_errors=True)
+    return {"launches": launches, "steps": epochs * steps,
+            "resize_launches": resize_launches, "step_ms": step_ms,
+            "c_step_ms": c_step_ms, "loader_wait_ms_per_step": wait_ms,
+            "macro_f1": [r["metric/macro_f1"] for r in valid],
+            "train_loss": [r["loss/train"] for r in train], "fit_s": fit_s}
+
+
+def phase_preview(seed: int, out_dir: Path, root: Path):
+    """Path Q: ``cli/learn.py --preview`` (``prepare_trainer``'s
+    ``preview``) on the generator's files with real_3_1's fields (FixMatch:
+    the kernel once, crop-fused) and real_1's (CoMatch: once, plain); the
+    arrays against direct view calls with the same generator."""
+    from unittest import mock
+
+    import torch
+
+    from endoscopy_tpu_torch.aug import views
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.eval import visualize
+    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
+
+    out = {}
+    for name, base in (("real_3_1", path_c.REAL_3_1),
+                       ("real_1", path_f.REAL_1)):
+        cfg = path_o.config(str(root), base=base)
+        data = learn.build_data(cfg, "cuda")
+        png = out_dir / f"preview_{name}.png"
+        png.unlink(missing_ok=True)
+        got = []
+        preview = visualize.preview_views
+
+        def recording(*a, **k):
+            got.append(preview(*a, **k))
+            return got[-1]
+
+        rk.randaugment_mc.launches = 0
+        with mock.patch.object(visualize, "preview_views", recording):
+            learn.prepare_trainer(cfg, device="cuda", data=data,
+                                  preview=str(png))
+        launches = rk.randaugment_mc.launches
+        size = int(cfg.DATA.IMG_SIZE)
+        lab, unl = data[0]
+        g = torch.Generator(device="cuda").manual_seed(0)
+        first = [views.labeled_train_view(lab.sample(np.arange(1)), size,
+                                          generator=g, device="cuda")[0]]
+        view = (views.comatch_views if cfg.MODEL.TYPE_SEMI == "CoMatch"
+                else views.fixmatch_views)
+        direct = first + [v[0] for v in view(unl.sample(np.arange(1)), size,
+                                             generator=g, device="cuda")]
+        want = [visualize.denormalize(v.float().cpu().numpy())
+                for v in direct]
+        equal = len(got) == 1 and len(got[0]) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(got[0], want))
+        for dl in (*data[0], data[1]):
+            dl.close()
+        out[name] = {"launches": launches, "equal": equal,
+                     "views": len(want), "png_written": png.exists()}
+        print(f"path Q: --preview on {name}'s fields ({cfg.MODEL.TYPE_SEMI}, "
+              f"{size} px): {len(want)} views, equal to direct view calls "
+              f"with the same generator: {equal}; randaugment_mc launches "
+              f"{launches}; PNG written: {png.exists()} (matplotlib is not "
+              "promised here)", flush=True)
+        if launches != 1 or not equal:
+            fail(f"path Q: the {name} preview: {out[name]}")
     return out
 
 
@@ -3784,6 +4269,7 @@ def main(argv=None) -> int:
 
     from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
+    jpeg_build = start_jpeg_build()  # path O's, beside the kernel's
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -3847,7 +4333,16 @@ def main(argv=None) -> int:
     run("M", phase_zoo, args.seed, scratch / "path_m")
     run("N", phase_parallel, args.seed, scratch / "path_n", rows["C"],
         started)
-    run("O", phase_native_probe)
+    run("O0", phase_jpeg_probe, finish_jpeg_build(jpeg_build))
+    run("O1", phase_jpeg_decode, scratch / "path_o")
+    t0 = time.perf_counter()
+    synth, rows["O2"] = phase_jpeg_loaders(args.seed, scratch / "path_o")
+    print(f"path O2 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("path O2: " + json.dumps(rows["O2"]), flush=True)
+    run("O3", phase_jpeg_learn, args.seed, scratch / "path_o", synth,
+        rows["C"]["full"]["step_ms_median"])
+    run("Q", phase_preview, args.seed, scratch / "path_o", synth)
+    shutil.rmtree(scratch / "path_o", ignore_errors=True)
     run("P", phase_branches, args.seed)
 
     train, learn_row, sup_row = rows["C"]["full"], rows["D"], rows["E"]
@@ -3911,8 +4406,26 @@ def main(argv=None) -> int:
         "path_m": {"launches": rows["M"]["launches"]},
         "path_n": {**fused(n1, IMG_C), "n2_launches": rows["N"]["n2"][
             "launches"], "n2_steps": rows["N"]["n2"]["steps"]},
-        "path_o": {"ran": False, "jpeglib_h": rows["O"]["jpeglib_h"]},
+        "path_o": {"launches": rows["O3"]["launches"],
+                   "steps": rows["O3"]["steps"]},
         "path_p": {"launches": rows["P"]["launches"]},
+        "path_q": {name: r["launches"] for name, r in rows["Q"].items()},
+    }, {
+        "name": "resize_bilinear", "route": "cuda",
+        "source": "endoscopy_tpu_torch/data/csrc/jpeg_card.cu",
+        "replaces": "native/loader.cpp:70",
+        "replaces_kind": "host code of the JPEG loader; no TPU kernel",
+        "launches": rows["O3"]["resize_launches"],
+        "steps": rows["O3"]["steps"],
+        "max_abs_err": max(rows["O1"]["kernel_max_abs_err"],
+                           rows["O2"]["resize"]["max_abs_err"]),
+        "ms": rows["O2"]["resize"]["ms"],
+        "plain_ms": rows["O2"]["resize"]["plain_ms"],
+        "bound_ms": rows["O2"]["resize"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": rows["O2"]["resize"]["library_ms"],
+        "library": "torch.nn.functional.interpolate, bilinear, float32",
+        "shape": rows["O2"]["resize"]["shape"],
+        "nvjpeg_decode_ms": rows["O2"]["decode_ms"],
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

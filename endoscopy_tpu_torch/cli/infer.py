@@ -1,9 +1,11 @@
 """Predictions from an exported artifact (port of ``endoscopy_tpu/cli/infer.py``).
 
 No model code or checkpoint: the artifact (``cli/export_model.py``, int8 or
-not) is loaded on ``--device``, a CSV of image paths is decoded through the
-canonical pipeline (cv2 BGR → RGB, bilinear), and one row is written per
-image. With ``--thres`` the output follows the reference's thresholded
+not) is loaded on ``--device``, a CSV of image paths is decoded (on the
+card by nvJPEG and the resize kernel, ``data/jpeg_card.py``, the batch
+staying there; on the CPU through the canonical pipeline, cv2 BGR → RGB,
+bilinear, as the JAX package does), and one row is written per image.
+With ``--thres`` the output follows the reference's thresholded
 pseudo-label rule ``pred = argmax · [max_prob > THRES]``; without it,
 ``pred = argmax`` and ``max_prob``. The ragged last batch is zero-padded
 to ``--batch`` and the pad rows dropped, so a pinned-batch artifact takes
@@ -29,6 +31,7 @@ import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from endoscopy_tpu_torch.device import resolve_device
 from endoscopy_tpu_torch.serve.export import load_exported
@@ -38,16 +41,20 @@ def predict(infer, load: Callable[[int, int], np.ndarray], n: int,
             batch: int, thres: Optional[float] = None
             ) -> Dict[str, np.ndarray]:
     """Predictions of ``n`` images, ``load(lo, hi)`` giving rows ``lo..hi``
-    as canonical uint8 ``(hi - lo, S, S, 3)``, through ``infer`` in batches
-    of ``batch`` (the last one zero-padded). Returns the output's columns:
-    ``pred`` (and ``max_prob`` without ``thres``)."""
+    as canonical uint8 ``(hi - lo, S, S, 3)`` (numpy, or a tensor on the
+    card), through ``infer`` in batches of ``batch`` (the last one
+    zero-padded). Returns the output's columns: ``pred`` (and ``max_prob``
+    without ``thres``)."""
     preds, maxp = [], []
     for lo in range(0, n, batch):
         hi = min(lo + batch, n)
         chunk = load(lo, hi)
         if hi - lo < batch:
-            pad = np.zeros((batch - (hi - lo),) + chunk.shape[1:], chunk.dtype)
-            chunk = np.concatenate([chunk, pad], axis=0)
+            shape = (batch - (hi - lo),) + tuple(chunk.shape[1:])
+            if isinstance(chunk, torch.Tensor):
+                chunk = torch.cat([chunk, chunk.new_zeros(shape)])
+            else:
+                chunk = np.concatenate([chunk, np.zeros(shape, chunk.dtype)])
         probs = infer(chunk)[:hi - lo]
         preds.append(np.argmax(probs, axis=-1))
         maxp.append(np.max(probs, axis=-1))
@@ -82,8 +89,6 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)  # before any file is read
     import pandas as pd
 
-    from endoscopy_tpu_torch.data.pipeline import decode_canonical
-
     infer = load_exported(args.model, device=device)
     if args.size is None:
         args.size = infer.input_size
@@ -101,8 +106,17 @@ def main(argv=None) -> None:
     paths = [os.path.join(args.root, p) if args.root else p
              for p in df[args.column].astype(str)]
 
-    def load(lo: int, hi: int) -> np.ndarray:
-        return np.stack([decode_canonical(p, args.size) for p in paths[lo:hi]])
+    if device.type == "cuda":
+        from endoscopy_tpu_torch.data import jpeg_card
+
+        def load(lo: int, hi: int):
+            return jpeg_card.decode_files(paths[lo:hi], args.size, device)
+    else:
+        from endoscopy_tpu_torch.data.pipeline import decode_canonical
+
+        def load(lo: int, hi: int):
+            return np.stack([decode_canonical(p, args.size)
+                             for p in paths[lo:hi]])
 
     out = df.copy()
     for column, values in predict(infer, load, len(paths), args.batch,

@@ -27,16 +27,22 @@ directory of the port, or a JAX train state dumped to ``.npz``). SIGTERM
 checkpoints at the next epoch boundary and exits 143.
 
 :func:`build_data` reads the CSVs with ``data/csv_table.py`` (no pandas).
-``DATA.LOADER: native`` decodes the JPEGs with the C++ core
-(``data/native_loader.py``: libjpeg, built at first use), the validation
-set too, so that route needs no cv2; any other value decodes with cv2,
-imported only then. A caller that brings its own loaders needs neither.
-Not ported yet (ROADMAP.md): ``--preview``.
+``DATA.LOADER: native`` decodes the JPEGs with the native loader
+(``data/native_loader.py``), the validation set too, so that route needs
+no cv2: on the card nvJPEG and the resize kernel (``data/jpeg_card.py``)
+on ``cuda:LOCAL_RANK`` under ``torchrun``, the batches staying there; on
+the CPU libjpeg. Any other value decodes with cv2 on the host, imported
+only then. A caller that brings its own loaders needs neither.
+``--preview PATH.png`` saves the trainer's views of one batch before each
+stage trains (``eval/visualize.py::preview_views``; ``_stage<i>`` is added
+to the name with two configs).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import os
 
 from endoscopy_tpu_torch.config.loader import get_config, is_none
 from endoscopy_tpu_torch.data.csv_table import read_csv
@@ -46,15 +52,9 @@ from endoscopy_tpu_torch.data.manifest import (build_ssl_manifests,
 from endoscopy_tpu_torch.data.pipeline import (CanonicalLoader, EvalLoader,
                                                canonical_size)
 from endoscopy_tpu_torch.models import build_model
-from endoscopy_tpu_torch.parallel import (group_size, in_group,
+from endoscopy_tpu_torch.parallel import (group_rank, group_size, in_group,
                                           init_from_env, leave_group)
 from endoscopy_tpu_torch.train import preempt
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to endoscopy_tpu_torch yet; see the port "
-        "queue in ROADMAP.md")
 
 
 def rank_batch_size(config) -> int:
@@ -69,16 +69,16 @@ def rank_batch_size(config) -> int:
 
 
 def _train_loader(manifest, bs: int, size: int, seed: int, workers: int,
-                  native: bool):
+                  native: bool, device):
     if native:
         from endoscopy_tpu_torch.data.native_loader import \
             NativeCanonicalLoader
         return NativeCanonicalLoader(manifest, bs, size, seed=seed,
-                                     num_threads=workers)
+                                     num_threads=workers, device=device)
     return CanonicalLoader(manifest, bs, size, seed=seed, num_workers=workers)
 
 
-def build_data(config):
+def build_data(config, device=None):
     """``(train loader(s), valid loader, cls_num_list, labeled targets)``
     from the config's CSVs: ``(labeled, unlabeled)`` loaders for an SSL
     config, one loader over the full supervised split otherwise. In a
@@ -86,13 +86,15 @@ def build_data(config):
     manifests (``shard_for_host``) in this rank's share of the batch; the
     class counts and targets are the whole manifest's, and every rank's
     valid loader reads the whole validation set. ``DATA.LOADER: native``
-    decodes every loader's files with the C++ core (seeds 0 and 1 for the
-    train loaders, ``NUM_WORKERS`` threads each)."""
+    decodes every loader's files with the native loader on ``device``
+    (``cuda`` by default: nvJPEG, the batches on the card; ``cpu``: the
+    libjpeg core), seeds 0 and 1 for the train loaders, ``NUM_WORKERS``
+    threads each."""
     native = config.DATA.get("LOADER") == "native"
     decoder = None
     if native:
         from endoscopy_tpu_torch.data.native_loader import decode_files
-        decoder = decode_files
+        decoder = functools.partial(decode_files, device=device)
     df_anno = read_csv(config.DATA.ANNO)
     size = canonical_size(config)
     bs = rank_batch_size(config)
@@ -102,7 +104,7 @@ def build_data(config):
         train, valid, cls_num_list = build_supervised_manifests(
             config, df_anno, is_full_sup=True)
         train_dl = _train_loader(shard_for_host(train), bs, size, 0, workers,
-                                 native)
+                                 native, device)
         valid_dl = EvalLoader(valid, bs, size, **valid_kw)
         return train_dl, valid_dl, cls_num_list, train.targets
     df_unanno = (None if config.DATA.MOCKUP_SSL
@@ -110,9 +112,10 @@ def build_data(config):
     labeled, unlabeled, valid, cls_num_list = build_ssl_manifests(
         config, df_anno, df_unanno)
     lab_dl = _train_loader(shard_for_host(labeled), bs, size, 0, workers,
-                           native)
+                           native, device)
     unl_dl = _train_loader(shard_for_host(unlabeled),
-                           bs * int(config.DATA.MU), size, 1, workers, native)
+                           bs * int(config.DATA.MU), size, 1, workers, native,
+                           device)
     valid_dl = EvalLoader(valid, bs, size, **valid_kw)
     return (lab_dl, unl_dl), valid_dl, cls_num_list, labeled.targets
 
@@ -157,15 +160,22 @@ def configure(trainer, config, data) -> None:
 
 
 def prepare_trainer(config, model=None, carry_state=None, device=None,
-                    data=None, trainer_override=None):
+                    data=None, trainer_override=None, preview=None):
     """One stage up to ``fit``: the data, the trainer, its config, the
     weights (``carry_state``, the previous stage's model state, or else
     ``MODEL.PRE_TRAIN_PATH``) and the resume. ``data`` is what
     :func:`build_data` returns (in a process group, this rank's loaders);
-    by default it is built from the CSVs. ``trainer_override`` is
-    ``--trainer``."""
+    by default it is built from the CSVs on ``device``.
+    ``trainer_override`` is ``--trainer``; ``preview`` a PNG path for
+    :func:`eval.visualize.preview_views` of the train loaders, rendered on
+    ``device`` before the trainer is built (written by rank 0 alone)."""
     if data is None:
-        data = build_data(config)
+        data = build_data(config, device)
+    if preview:
+        from endoscopy_tpu_torch.eval.visualize import preview_views
+        save = preview if group_rank() == 0 else None
+        preview_views(config, data[0], save_path=save, device=device)
+        print(f"augmentation preview saved to {preview}")
     if model is None:
         model = build_model(config)
     trainer = make_trainer(config, model, device=device,
@@ -183,11 +193,11 @@ def prepare_trainer(config, model=None, carry_state=None, device=None,
 
 
 def run_config(config, model=None, carry_state=None, device=None, data=None,
-               trainer_override=None):
+               trainer_override=None, preview=None):
     """One training stage: :func:`prepare_trainer`, then ``fit``. Returns
     ``(trainer, model)``."""
     trainer = prepare_trainer(config, model, carry_state, device, data,
-                              trainer_override)
+                              trainer_override, preview)
     trainer.fit()
     return trainer, trainer.state.model
 
@@ -202,12 +212,11 @@ def main(argv=None) -> None:
                         help="override trainer dispatch (EZBM's two "
                         "stages)")
     parser.add_argument("--preview", default=None, metavar="PATH.png",
-                        help="augmentation-view grid (not ported yet)")
+                        help="save a one-batch augmentation-view grid "
+                        "before training")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.preview is not None:
-        raise _not_ported("--preview (eval/visualize.py)")
 
     # SIGTERM → checkpoint at the next epoch boundary → exit 143
     preempt.install()
@@ -223,10 +232,15 @@ def main(argv=None) -> None:
     try:
         for idx, config in enumerate(configs):
             print(f"=== stage {idx} | IMG_SIZE={config.DATA.IMG_SIZE} ===")
+            preview = args.preview
+            if preview and len(configs) > 1:
+                stem, ext = os.path.splitext(preview)
+                preview = f"{stem}_stage{idx}{ext or '.png'}"
             trainer, model = run_config(config, model=model,
                                         carry_state=carry_state,
                                         device=device,
-                                        trainer_override=args.trainer)
+                                        trainer_override=args.trainer,
+                                        preview=preview)
             carry_state = model.state_dict()
             if preempt.requested():
                 print("[preempt] exiting 143 (checkpoint saved; resume with "

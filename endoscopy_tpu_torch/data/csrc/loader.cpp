@@ -2,6 +2,13 @@
 // fixed-size uint8 RGB batches, and the JPEG encoder of the synthetic
 // dataset generator.
 //
+// Built with -DENDO_BYTES_ONLY it needs no libjpeg: the worker threads
+// only read the files and hand out their bytes with their indices
+// (loader_next_bytes / loader_copy_bytes), for a decoder elsewhere (the
+// card's, data/jpeg_card.py). The shuffle, the wrap-around batches, the
+// bounded queue and the all-unreadable sentinel are the same code, so the
+// same paths and seed give the same index stream as the libjpeg build.
+//
 // A copy of the JAX package's loader core: the decode, the resize, the
 // Loader (its shuffle, queue and corrupt-file sentinel) and the four
 // loader_* entry points are unchanged, so the same files and seed give the
@@ -16,6 +23,7 @@
 //
 // Build (data/native_loader.py does it at first use, into build/native/):
 //   g++ -O3 -shared -fPIC -std=c++17 loader.cpp -o libendoloader.so -ljpeg -lpthread
+//   g++ -O3 -shared -fPIC -std=c++17 -DENDO_BYTES_ONLY loader.cpp -o libendoloader-bytes.so -lpthread
 
 #include <atomic>
 #include <condition_variable>
@@ -29,10 +37,14 @@
 #include <thread>
 #include <vector>
 
+#ifndef ENDO_BYTES_ONLY
 #include <jpeglib.h>
 #include <setjmp.h>
+#endif
 
 namespace {
+
+#ifndef ENDO_BYTES_ONLY
 
 struct JpegErrorMgr {
   jpeg_error_mgr pub;
@@ -102,10 +114,11 @@ void resize_bilinear(const uint8_t* src, int sw, int sh, uint8_t* dst, int size)
     }
   }
 }
+#endif  // ENDO_BYTES_ONLY
 
 struct Item {
   int64_t index;
-  std::vector<uint8_t> pixels;  // size*size*3
+  std::vector<uint8_t> pixels;  // size*size*3; the file's bytes in ENDO_BYTES_ONLY
 };
 
 class Loader {
@@ -153,6 +166,39 @@ class Loader {
     }
   }
 
+  // Take the next n items: their indices and byte counts; returns the
+  // total byte count. loader_copy_bytes then copies their bytes, in order,
+  // into one buffer. One consumer at a time.
+  int64_t next_bytes(int n, int64_t* indices, int64_t* lengths) {
+    taken_.clear();
+    int64_t total = 0;
+    for (int i = 0; i < n; ++i) {
+      Item item;
+      {
+        std::unique_lock<std::mutex> lk(mu_);
+        cv_not_empty_.wait(lk, [this] { return !queue_.empty() || stop_; });
+        if (stop_ && queue_.empty()) return total;
+        item = std::move(queue_.front());
+        queue_.pop_front();
+      }
+      cv_not_full_.notify_one();
+      indices[i] = item.index;
+      lengths[i] = static_cast<int64_t>(item.pixels.size());
+      total += lengths[i];
+      taken_.push_back(std::move(item));
+    }
+    return total;
+  }
+
+  void copy_bytes(uint8_t* out) {
+    for (const Item& item : taken_) {
+      if (!item.pixels.empty())
+        std::memcpy(out, item.pixels.data(), item.pixels.size());
+      out += item.pixels.size();
+    }
+    taken_.clear();
+  }
+
  private:
   void reshuffle() {
     if (shuffle_) {
@@ -176,7 +222,11 @@ class Loader {
   }
 
   void worker() {
-    std::vector<uint8_t> raw, decoded;
+    std::vector<uint8_t> raw;
+#ifndef ENDO_BYTES_ONLY
+    std::vector<uint8_t> decoded;
+    int w = 0, h = 0;
+#endif
     while (true) {
       {
         std::unique_lock<std::mutex> lk(mu_);
@@ -189,7 +239,6 @@ class Loader {
       const std::string& path = paths_[idx];
 
       bool ok = false;
-      int w = 0, h = 0;
       FILE* f = std::fopen(path.c_str(), "rb");
       if (f) {
         std::fseek(f, 0, SEEK_END);
@@ -198,8 +247,10 @@ class Loader {
         raw.resize(len > 0 ? len : 0);
         size_t rd = len > 0 ? std::fread(raw.data(), 1, len, f) : 0;
         std::fclose(f);
-        ok = len > 0 && rd == static_cast<size_t>(len) &&
-             decode_jpeg(raw.data(), raw.size(), decoded, w, h);
+        ok = len > 0 && rd == static_cast<size_t>(len);
+#ifndef ENDO_BYTES_ONLY
+        ok = ok && decode_jpeg(raw.data(), raw.size(), decoded, w, h);
+#endif
       }
       if (!ok) {
         ++dropped_;
@@ -211,8 +262,10 @@ class Loader {
           consecutive_failures_ = 0;
           Item sentinel;
           sentinel.index = -1;
+#ifndef ENDO_BYTES_ONLY
           sentinel.pixels.assign(
               static_cast<size_t>(size_) * size_ * 3, 0);
+#endif
           {
             std::unique_lock<std::mutex> lk(mu_);
             cv_not_full_.wait(lk, [this] {
@@ -230,8 +283,13 @@ class Loader {
 
       Item item;
       item.index = idx;
+#ifdef ENDO_BYTES_ONLY
+      item.pixels = std::move(raw);
+      raw = std::vector<uint8_t>();
+#else
       item.pixels.resize(static_cast<size_t>(size_) * size_ * 3);
       resize_bilinear(decoded.data(), w, h, item.pixels.data(), size_);
+#endif
 
       {
         std::unique_lock<std::mutex> lk(mu_);
@@ -258,6 +316,7 @@ class Loader {
   std::mutex mu_;
   std::condition_variable cv_not_empty_, cv_not_full_;
   std::deque<Item> queue_;
+  std::vector<Item> taken_;  // next_bytes' items until copy_bytes
   std::vector<std::thread> workers_;
   std::atomic<int64_t> dropped_{0};
   std::atomic<int64_t> consecutive_failures_{0};
@@ -284,6 +343,29 @@ int64_t loader_dropped(void* handle) {
 }
 
 void loader_destroy(void* handle) { delete static_cast<Loader*>(handle); }
+
+int64_t loader_next_bytes(void* handle, int n, int64_t* indices,
+                          int64_t* lengths) {
+  return static_cast<Loader*>(handle)->next_bytes(n, indices, lengths);
+}
+
+void loader_copy_bytes(void* handle, uint8_t* out) {
+  static_cast<Loader*>(handle)->copy_bytes(out);
+}
+
+#ifndef ENDO_BYTES_ONLY
+// Decode one JPEG byte buffer to RGB rows at its own size, with no
+// resize: h*w*3 bytes into `out` when they fit in `capacity`. Sets *h and
+// *w; returns 0 on success, 1 when libjpeg fails, 2 when `out` is too
+// small (call again with h*w*3 bytes).
+int jpeg_decode_rgb(const uint8_t* data, int64_t len, uint8_t* out,
+                    int64_t capacity, int* h, int* w) {
+  std::vector<uint8_t> decoded;
+  if (!decode_jpeg(data, static_cast<size_t>(len), decoded, *w, *h)) return 1;
+  if (static_cast<int64_t>(decoded.size()) > capacity) return 2;
+  std::memcpy(out, decoded.data(), decoded.size());
+  return 0;
+}
 
 // Encode h*w RGB uint8 rows (row-major, 3 bytes a pixel) to a baseline
 // JPEG file at `quality` with libjpeg's defaults (4:2:0 chroma, the slow
@@ -320,5 +402,6 @@ int jpeg_write_rgb(const char* path, const uint8_t* pixels, int h, int w,
   jpeg_destroy_compress(&cinfo);
   return std::fclose(f) == 0 ? 0 : 3;
 }
+#endif  // ENDO_BYTES_ONLY
 
 }  // extern "C"

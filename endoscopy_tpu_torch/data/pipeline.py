@@ -18,8 +18,11 @@ decoded by cv2 (:func:`decode_canonical`), imported only then; the
 rows`` instead, such as the native core's
 ``data/native_loader.py::decode_files``, which needs no cv2. Under ``DATA.LOADER: native`` ``cli/learn.py::build_data``
 gives it to the validation loader: a convention of the port's, since the
-JAX package evaluates with cv2 even under ``native``. The serving path,
-which takes raw canonical buffers, needs neither.
+JAX package evaluates with cv2 even under ``native``. On the card that
+decoder returns uint8 CUDA tensors, and the loader's rows, chunks and
+cache are those tensors (concatenated with ``torch.cat``): they never
+pass through the host. The serving path, which takes raw canonical
+buffers, needs neither.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from endoscopy_tpu_torch.data.manifest import Manifest
 
@@ -105,10 +109,12 @@ class _Decoder:
             return self._batch_decoder(paths, size)
         chunks = np.array_split(np.arange(len(paths)),
                                 min(self._workers, len(paths)))
-        parts = self._pool.map(
+        parts = list(self._pool.map(
             lambda c: self._batch_decoder([paths[i] for i in c], size),
-            chunks)
-        return np.concatenate(list(parts))
+            chunks))
+        if isinstance(parts[0], torch.Tensor):
+            return torch.cat(parts)
+        return np.concatenate(parts)
 
     def close(self) -> None:
         if self._pool is not None:

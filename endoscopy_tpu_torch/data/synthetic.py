@@ -10,21 +10,25 @@ models can learn them.
 
 The same arguments draw the same ``default_rng(seed)`` stream in the same
 order as the JAX package's generator, so the pixels before encoding are
-its pixels bit for bit. The JPEGs are encoded by the native core's libjpeg
-(``data/native_loader.py::write_jpeg``, quality 92, as the JAX generator's
-cv2 writes them) and the CSVs by the ``csv`` module in pandas'
+its pixels bit for bit. The JPEGs are encoded at quality 92 with 4:2:0
+chroma, as the JAX generator's cv2 writes them: on the CPU by the native
+core's libjpeg (``data/native_loader.py::write_jpeg``: the JAX generator's
+files byte for byte on the build host), on the card (the default) by
+nvJPEG (``data/jpeg_card.py::write_jpeg``: the same images, other bytes).
+The CSVs are written by the ``csv`` module in pandas'
 ``to_csv(index=False)`` format, so neither cv2 nor pandas is needed.
 """
 
 from __future__ import annotations
 
 import csv
+import functools
 import os
 from typing import List, Tuple
 
 import numpy as np
 
-from endoscopy_tpu_torch.data.native_loader import write_jpeg
+from endoscopy_tpu_torch.device import resolve_device
 
 # Distinct, well-separated base RGB colors (cycled beyond 12 classes).
 _PALETTE = np.array([
@@ -58,9 +62,10 @@ def _write_csv(path: str, header: List[str], rows: List[tuple]) -> None:
 def make_synthetic_dataset(root: str, num_classes: int = 4, n_train: int = 32,
                            n_valid: int = 12, n_unlabeled: int = 16,
                            img_size: int = 48, labeled_frac: float = 0.5,
-                           seed: int = 0
+                           seed: int = 0, device=None
                            ) -> Tuple[str, str, str, str]:
-    """Generate a synthetic dataset under ``root``.
+    """Generate a synthetic dataset under ``root``, its JPEGs encoded on
+    ``device`` (``cuda`` by default, ``cpu`` when asked for).
 
     Returns ``(img_root, anno_csv, unl_root, unanno_csv)``:
 
@@ -72,6 +77,12 @@ def make_synthetic_dataset(root: str, num_classes: int = 4, n_train: int = 32,
       ``image, pred`` (all ``pred=1``: every row passes the real-SSL
       filter).
     """
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from endoscopy_tpu_torch.data import jpeg_card
+        write_jpeg = functools.partial(jpeg_card.write_jpeg, device=dev)
+    else:
+        from endoscopy_tpu_torch.data.native_loader import write_jpeg
     rng = np.random.default_rng(seed)
     img_root = os.path.join(root, "labeled_images")
     unl_root = os.path.join(root, "unlabeled_images")

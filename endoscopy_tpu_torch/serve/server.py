@@ -11,8 +11,10 @@ Endpoints:
 
 - ``POST /predict`` — one image per request. ``Content-Type:
   application/octet-stream`` sends a raw canonical uint8 ``(S, S, 3)``
-  buffer; any other content type is decoded as an encoded image through
-  the canonical cv2 pipeline (cv2 is imported only then). Response:
+  buffer; any other content type is decoded as an encoded image: on the
+  card by nvJPEG and the resize kernel (``data/jpeg_card.py``; JPEG only),
+  on the CPU through the canonical cv2 pipeline (cv2 is imported only
+  then), as the JAX package does. Response:
   ``{"pred": k, "max_prob": p, "probs": [...]}``.
 - ``GET /healthz`` — artifact contract + backend.
 - ``GET /stats`` — request/batch counts, per-bucket histogram, mean fill
@@ -259,8 +261,7 @@ class _Handler(BaseHTTPRequestHandler):
                         f"uint8 ({size},{size},3) needs {expect}")
                 img = np.frombuffer(raw, np.uint8).reshape(size, size, 3)
             else:
-                from endoscopy_tpu_torch.data.pipeline import decode_canonical_bytes
-                img = decode_canonical_bytes(raw, size)
+                img = self.server.decode(raw, size)
         except (ValueError, OSError) as exc:
             self._reply(400, {"error": str(exc)})
             return
@@ -281,6 +282,26 @@ class _Handler(BaseHTTPRequestHandler):
         pass
 
 
+def _decode_cv2(raw: bytes, size: int) -> np.ndarray:
+    from endoscopy_tpu_torch.data.pipeline import decode_canonical_bytes
+    return decode_canonical_bytes(raw, size)
+
+
+def card_decoder(device):
+    """The card's decode of an encoded payload: nvJPEG and the resize
+    kernel on ``device``; a payload nvJPEG cannot decode is a ValueError
+    (HTTP 400)."""
+    from endoscopy_tpu_torch.data import jpeg_card
+
+    def decode(raw: bytes, size: int) -> np.ndarray:
+        img, ok = jpeg_card.decode_some([raw], size, device)
+        if not ok[0]:
+            raise ValueError("nvJPEG could not decode the image payload")
+        return img[0].cpu().numpy()
+
+    return decode
+
+
 class ModelServer(ThreadingHTTPServer):
     """HTTP front + BucketBatcher over one exported artifact."""
 
@@ -295,8 +316,10 @@ class ModelServer(ThreadingHTTPServer):
     def __init__(self, address, infer_fn, *, input_size: int,
                  num_classes: int, buckets: Sequence[int],
                  max_wait_ms: float, backend: str,
-                 request_timeout_s: float = 120.0):
+                 request_timeout_s: float = 120.0, decode=None):
         super().__init__(address, _Handler)
+        # encoded payload bytes, side -> canonical uint8 (side, side, 3)
+        self.decode = decode or _decode_cv2
         self.batcher = BucketBatcher(infer_fn, input_size,
                                      buckets=buckets,
                                      max_wait_ms=max_wait_ms)
@@ -344,4 +367,5 @@ def make_server(model_path: str, host: str = "0.0.0.0", port: int = 8000,
                        input_size=infer.input_size,
                        num_classes=infer.num_classes,
                        buckets=buckets, max_wait_ms=max_wait_ms,
-                       backend=backend)
+                       backend=backend,
+                       decode=card_decoder(dev) if dev.type == "cuda" else None)

@@ -34,8 +34,9 @@ and the macro-F1 both improve (the first evaluation always saves), a
 count of evaluations where either got worse, and a stop at the start of
 an epoch once that count passes 5; ``best_valid_perf`` is not updated.
 Every 5 epochs the triplet branch logs the last step's mean anchor-positive
-and anchor-negative distances to the JSONL log (the reference's histogram
-PNG waits for ``eval/visualize.py``, ROADMAP.md).
+and anchor-negative distances to the JSONL log and draws their histogram to
+``LOG_DIR/triplet_dist_epoch<N>.png`` (``eval/visualize.py::
+show_triplet_dist``; no PNG without matplotlib or ``LOG_DIR``).
 """
 
 from __future__ import annotations
@@ -220,6 +221,9 @@ class SupLearning(BaseTrainer):
             pos_idx[i] = rng.choice(np.nonzero(t == y)[0])
             neg_idx[i] = rng.choice(np.nonzero(t != y)[0])
         both = loader.sample(np.concatenate([pos_idx, neg_idx]))
+        if isinstance(both, torch.Tensor):  # the native loader on the card
+            return torch.cat([torch.as_tensor(batch_u8).to(both.device),
+                              both])
         return np.concatenate([np.asarray(batch_u8), both], axis=0)
 
     def _epoch_weights(self, epoch: int) -> torch.Tensor:
@@ -253,11 +257,22 @@ class SupLearning(BaseTrainer):
         if self.is_triplet and aux:
             self._last_triplet_dist = tuple(float(a) for a in aux)
             if epoch % 5 == 0:
-                d_ap, d_an = self._last_triplet_dist
-                self._metric_logger().log({"triplet/d_ap_mean": d_ap,
-                                           "triplet/d_an_mean": d_an},
-                                          epoch=epoch)
+                self._log_triplet_dist(epoch)
         return summary_loss
+
+    def _log_triplet_dist(self, epoch: int) -> None:
+        """The last step's distances: their histogram PNG under
+        ``LOG_DIR`` and their means in the JSONL log."""
+        from endoscopy_tpu_torch.eval.visualize import show_triplet_dist
+
+        d_ap, d_an = self._last_triplet_dist
+        log_dir = self.config.TRAIN.get("LOG_DIR")
+        save = (f"{log_dir}/triplet_dist_epoch{epoch}.png"
+                if log_dir and self.group.rank == 0 else None)
+        show_triplet_dist(d_ap=d_ap, d_an=d_an, save_path=save)
+        self._metric_logger().log({"triplet/d_ap_mean": float(np.mean(d_ap)),
+                                   "triplet/d_an_mean": float(np.mean(d_an))},
+                                  epoch=epoch)
 
     def _images_per_step(self) -> int:
         bs = int(self.config.DATA.BATCH_SIZE)

@@ -1,12 +1,13 @@
-"""Training observability (subset of ``endoscopy_tpu/utils/logging.py``).
+"""Training observability (port of ``endoscopy_tpu/utils/logging.py``).
 
 Metrics go to a JSONL run log, optionally mirrored to wandb when it is
-importable; :class:`Throughput` counts images per second. The profiler
-trace helper is not ported yet (ROADMAP.md).
+importable; :class:`Throughput` counts images per second;
+:func:`profiler_trace` writes a ``torch.profiler`` trace of a scope.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -69,3 +70,24 @@ class Throughput:
     def images_per_sec(self) -> float:
         dt = time.perf_counter() - self._t0
         return self._steps * self.images_per_step / max(dt, 1e-9)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """A ``torch.profiler`` scope (the host, and the card when there is
+    one) that writes its Chrome trace to ``log_dir/trace.json``; a no-op
+    when ``log_dir`` is falsy. The JAX package's version has no caller;
+    ``tools/torch_port/profile_step.py`` profiles the port's step."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

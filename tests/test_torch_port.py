@@ -30,7 +30,11 @@ in two gloo processes against one process on the same global batch, the
 gathers, checkpoints and shards of a process group); ``native`` (the
 native JPEG loader, the synthetic dataset generator and the CSV reader:
 bit for bit against the JAX package's, and ``cli/learn.py`` with
-``DATA.LOADER: native`` where pandas and cv2 cannot be imported). This
+``DATA.LOADER: native`` where pandas and cv2 cannot be imported; the card's
+JPEG route's bytes-only core, the resize kernel's plain version and the
+JPEG fixture), ``offline`` (the offline tools, ``preprocess``,
+``split_data`` and ``eda``, and ``eval/visualize.py`` with the previews
+and the CLIs' PNGs, against the JAX package's). This
 one test runs every case and reports every failure with its traceback. It
 is one test item so that the counts of the JAX suite that ``PARITY.md``
 documents, and ``tests/test_parity_doc.py`` checks within 2, stay the JAX
@@ -42,11 +46,11 @@ import traceback
 import torch
 
 from torch_port_checks import (comatch, ezbm, learn, models, native, nojax,
-                               parallel, randaugment, semiformer, serve,
-                               supervised, train, views, zoo)
+                               offline, parallel, randaugment, semiformer,
+                               serve, supervised, train, views, zoo)
 
 MODULES = (models, randaugment, views, serve, train, learn, supervised,
-           comatch, semiformer, ezbm, zoo, parallel, native, nojax)
+           comatch, semiformer, ezbm, zoo, parallel, native, offline, nojax)
 
 
 def _cases():

@@ -126,9 +126,9 @@ def check_grayscale_and_adjust_hue_match_jax():
                                   np.asarray(gray))
 
 
-@jax.jit
-def _comatch_draw_fn(key):
-    """What jax ``comatch_views`` draws from ``key`` for B images
+@functools.partial(jax.jit, static_argnums=1)
+def _comatch_draw_fn(key, n=B * MU):
+    """What jax ``comatch_views`` draws from ``key`` for ``n`` images
     (aug/views.py:188-203), but ``(pi, pf)``."""
     kw, k0, k1 = jax.random.split(key, 3)
     k0_pre, k0_ra = jax.random.split(k0)
@@ -149,17 +149,17 @@ def _comatch_draw_fn(key):
         return jax.random.uniform(k) < 0.5
 
     jit_p, factors, orders, grays, flips1 = jax.vmap(s1)(
-        jax.random.split(k1, B * MU))
-    return {"weak_flips": jax.vmap(flip)(jax.random.split(kw, B * MU)),
-            "strong0_flips": jax.vmap(flip)(jax.random.split(k0_pre, B * MU)),
+        jax.random.split(k1, n))
+    return {"weak_flips": jax.vmap(flip)(jax.random.split(kw, n)),
+            "strong0_flips": jax.vmap(flip)(jax.random.split(k0_pre, n)),
             "jitters": jit_p, "factors": factors, "orders": orders,
             "grays": grays, "strong1_flips": flips1}, k0_ra
 
 
-def _comatch_draws(key, n):
-    draws, k_ra = _comatch_draw_fn(key)
+def _comatch_draws(key, n, img=IMG):
+    draws, k_ra = _comatch_draw_fn(key, n)
     draws = {k: np.array(v) for k, v in draws.items()}
-    pi, pf = rk.sample_randaugment_params(k_ra, n, IMG, IMG)
+    pi, pf = rk.sample_randaugment_params(k_ra, n, img, img)
     draws.update(pi=np.array(pi), pf=np.array(pf))
     return draws
 

@@ -646,8 +646,8 @@ def check_learn_cli_runs_both_stages_like_jax():
     stages of ``configs/synthetic_smoke.yaml``: exit 0, and the same
     ``epoch_<N>`` directories and meta fields as the JAX CLI (``train_one``
     stood in); without ``--device`` and a card it raises (with ``--trainer
-    ezbm`` too), a requested preemption exits 143 after a checkpoint, and
-    ``--preview`` points at ROADMAP.md."""
+    ezbm`` and with ``--preview`` too), and a requested preemption exits
+    143 after a checkpoint."""
     with tempfile.TemporaryDirectory() as tmp:
         port_cfgs = _write_stage_configs(tmp, "port")
         env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -710,15 +710,16 @@ def check_learn_cli_runs_both_stages_like_jax():
             preempt.reset()
             signal.signal(signal.SIGTERM, handler)
         assert (Path(tmp, "port", "stage1", "epoch_1", "state.pt").is_file())
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            learn.main(["--config-1", port_cfgs[0], "--preview", "p.png"])
-        # --trainer ezbm is ported: it reaches the trainer, which asks for
-        # the device (ezbm.py runs it)
-        with mock.patch.object(torch.cuda, "is_available", lambda: False), \
-                mock.patch.object(learn.preempt, "install", lambda: None), \
-                contextlib.redirect_stdout(io.StringIO()), \
-                pytest.raises(RuntimeError, match="device='cpu'"):
-            learn.main(["--config-1", port_cfgs[0], "--trainer", "ezbm"])
+        # --preview and --trainer ezbm are ported: without a card and
+        # --device they ask for the device before reading a file
+        # (offline.py writes a preview on the CPU; ezbm.py runs EZBM)
+        for extra in (["--preview", "p.png"], ["--trainer", "ezbm"]):
+            with mock.patch.object(torch.cuda, "is_available",
+                                   lambda: False), \
+                    mock.patch.object(learn.preempt, "install", lambda: None), \
+                    contextlib.redirect_stdout(io.StringIO()), \
+                    pytest.raises(RuntimeError, match="device='cpu'"):
+                learn.main(["--config-1", port_cfgs[0], *extra])
 
 
 def check_export_cli_from_a_checkpoint():

@@ -20,11 +20,19 @@ The port's core is built into ``build/native/``; the JAX package's stays in
 ``native/``, which the checks leave as git has it. ``cli/learn.py`` runs
 ``configs/synthetic_smoke.yaml`` with ``DATA.LOADER: native`` in a process
 where pandas, cv2 and PIL cannot be imported.
+
+The card's route (``data/jpeg_card.py``: nvJPEG and the resize kernel) runs
+on the card alone (``chip_smoke.py`` path O). Here: the bytes-only core's
+index stream against the libjpeg core's, the resize kernel's plain version
+bit for bit against the core's resize, the JPEG fixture's stored pixels
+against the JAX package's decoders, path O's config against its YAML, and
+``device='cuda'`` raising without CUDA.
 """
 
 import filecmp
 import functools
 import glob
+import importlib.util
 import os
 import re
 import subprocess
@@ -36,6 +44,7 @@ from unittest import mock
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 import yaml
 
 from endoscopy_tpu.config.loader import default_config as jax_default_config
@@ -44,10 +53,13 @@ from endoscopy_tpu.data import pipeline as jpipeline
 from endoscopy_tpu.data import synthetic as jsynthetic
 from endoscopy_tpu.data.native_loader import \
     NativeCanonicalLoader as JaxNativeLoader
+from endoscopy_tpu_torch.cli.learn import build_data
 from endoscopy_tpu_torch.config.loader import default_config
-from endoscopy_tpu_torch.data import csv_table, manifest, native_loader
+from endoscopy_tpu_torch.data import (csv_table, jpeg_card, manifest,
+                                      native_loader)
 from endoscopy_tpu_torch.data import pipeline, synthetic
 from endoscopy_tpu_torch.data.manifest import Manifest
+from torch_port_checks import path_o
 
 ROOT = Path(__file__).resolve().parents[2]
 GEN = dict(num_classes=4, n_train=24, n_valid=8, n_unlabeled=8, img_size=48)
@@ -60,7 +72,7 @@ def _datasets():
     directory kept for the process."""
     tmp = tempfile.TemporaryDirectory()
     port = synthetic.make_synthetic_dataset(os.path.join(tmp.name, "port"),
-                                            **GEN)
+                                            device="cpu", **GEN)
     jax = jsynthetic.make_synthetic_dataset(os.path.join(tmp.name, "jax"),
                                             **GEN)
     return tmp, port, jax
@@ -132,6 +144,10 @@ def _corrupt_copies(files, tmp, bad):
     return out
 
 
+def _cpu_loader(*args, **kwargs):
+    return native_loader.NativeCanonicalLoader(*args, device="cpu", **kwargs)
+
+
 def check_native_loader_matches_jax():
     """One thread and one seed: three batches' images, targets and indices,
     ``sample()``, the warning on a corrupt file and the raise on an
@@ -140,7 +156,7 @@ def check_native_loader_matches_jax():
     files = _jpegs(port)
     m = _indexed(files)
     got = native_loader.NativeCanonicalLoader(m, BATCH, SIZE, seed=5,
-                                              num_threads=1)
+                                              num_threads=1, device="cpu")
     want = JaxNativeLoader(m, BATCH, SIZE, seed=5, num_threads=1)
     seen = set()
     for _, (x, t), (wx, wt) in zip(range(3), got, want):
@@ -156,7 +172,7 @@ def check_native_loader_matches_jax():
     with tempfile.TemporaryDirectory() as tmp:
         bad = (3, 5)
         cm = _indexed(_corrupt_copies(files[:10], tmp, bad))
-        for cls in (native_loader.NativeCanonicalLoader, JaxNativeLoader):
+        for cls in (_cpu_loader, JaxNativeLoader):
             loader = cls(cm, 10, SIZE, num_threads=1)
             with pytest.warns(RuntimeWarning, match=r"skipped \d+ unreadable"):
                 _, t = next(iter(loader))
@@ -166,7 +182,7 @@ def check_native_loader_matches_jax():
             loader.close()
         for p in cm.paths:
             Path(p).write_bytes(b"")
-        for cls in (native_loader.NativeCanonicalLoader, JaxNativeLoader):
+        for cls in (_cpu_loader, JaxNativeLoader):
             loader = cls(cm, 4, SIZE, num_threads=1)
             with pytest.raises(RuntimeError, match="no decodable image"):
                 next(iter(loader))
@@ -187,7 +203,9 @@ def check_native_eval_loader():
     ref = JaxNativeLoader(valid, bs, SIZE, num_threads=1)
     for cache in (None, False):
         got = pipeline.EvalLoader(valid, bs, SIZE, cache=cache,
-                                  decoder=native_loader.decode_files)
+                                  decoder=functools.partial(
+                                      native_loader.decode_files,
+                                      device="cpu"))
         cv2_ref = jpipeline.EvalLoader(jvalid, bs, SIZE, cache=cache)
         batches = list(zip(got, cv2_ref))
         assert len(batches) == len(got) == 3
@@ -203,7 +221,8 @@ def check_native_eval_loader():
         got.close()
     ref.close()
     with pytest.raises(RuntimeError, match="could not decode 1 of 2"):
-        native_loader.decode_files([valid.paths[0], "/nonexistent.jpg"], SIZE)
+        native_loader.decode_files([valid.paths[0], "/nonexistent.jpg"], SIZE,
+                                   device="cpu")
 
 
 def _same_manifest(got, want):
@@ -276,6 +295,8 @@ def check_native_build_stays_in_build_dir():
     so = native_loader.build_library()
     assert so.parent == ROOT / "build" / "native" and so.is_file(), so
     assert so == native_loader.library_path()
+    card = native_loader.build_library(bytes_only=True)
+    assert card.parent == so.parent and card != so and card.is_file()
     status = subprocess.run(["git", "status", "--porcelain", "--", "native"],
                             cwd=ROOT, capture_output=True, text=True)
     assert status.returncode == 0 and status.stdout == "", status.stdout
@@ -322,3 +343,142 @@ def check_learn_cli_native_without_pandas_or_cv2():
     losses = re.findall(r"Train Loss: ([0-9.]+)", proc.stdout)
     assert len(losses) == 2 and all(np.isfinite(float(v)) for v in losses)
     assert len(re.findall(r"Valid Loss: ([0-9.]+)", proc.stdout)) >= 2
+
+
+def check_bytes_only_core_matches_libjpeg_core():
+    """The bytes-only core (the card's) hands out each file's bytes in the
+    libjpeg core's index stream, for the same paths and seed, across an
+    epoch's wrap-around (40 files, batches of 16, one thread each); both
+    drop an empty file."""
+    _, port, _ = _datasets()
+    files = _jpegs(port)
+    cpu = native_loader._Handle(files, SIZE, 1, 64, 9, True)
+    card = native_loader._Handle(files, SIZE, 1, 64, 9, True,
+                                 bytes_only=True)
+    for _ in range(5):
+        _, want = cpu.next(16)
+        payloads, got = card.next_bytes(16)
+        np.testing.assert_array_equal(got, want)
+        assert payloads == [Path(files[i]).read_bytes() for i in got]
+    cpu.close()
+    card.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _corrupt_copies(files[:6], tmp, (2, 4))  # 2 cut, 4 empty
+        card = native_loader._Handle(paths, SIZE, 1, 8, 0, False,
+                                     bytes_only=True)
+        payloads, got = card.next_bytes(5)
+        assert got.tolist() == [0, 1, 2, 3, 5] and len(payloads[2]) == 100
+        assert card.dropped() >= 1  # the reader runs ahead, into pass 2
+        card.close()
+
+
+def check_plain_resize_matches_core():
+    """``jpeg_card.resize_bilinear_plain`` (the resize kernel's plain
+    version) on libjpeg's decode at the file's own size equals the core's
+    ``decode_files`` bit for bit at 134, 112 and 224 px, on the fixture's
+    files (a non-square one among them) and on a generator file; decoded
+    at its own side, the core gives libjpeg's pixels."""
+    _, port, _ = _datasets()
+    files = [str(path_o.FIXTURE / f) for f in path_o.FIXTURE_FILES]
+    files.append(_jpegs(port)[0])
+    raws = [torch.from_numpy(native_loader.decode_rgb(Path(f).read_bytes()))
+            for f in files]
+    assert {tuple(r.shape[:2]) for r in raws} >= {(161, 127), (48, 48)}
+    square = [(f, r) for f, r in zip(files, raws) if r.shape[0] == r.shape[1]]
+    for f, r in square:
+        np.testing.assert_array_equal(
+            native_loader.decode_files([f], r.shape[0], device="cpu")[0], r)
+    flat, offsets, hw = jpeg_card.pack(raws)
+    for size in (134, 112, 224):
+        got = jpeg_card.resize_bilinear(flat, offsets, hw, size)  # the CPU:
+        np.testing.assert_array_equal(  # the plain version
+            got.numpy(), native_loader.decode_files(files, size, device="cpu"))
+    assert jpeg_card.resize_bilinear.launches == 0
+
+
+def _fixture_tool():
+    spec = importlib.util.spec_from_file_location(
+        "make_jpeg_fixture", ROOT / "tools" / "torch_port" /
+        "make_jpeg_fixture.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_jpeg_fixture_matches_jax_decoders():
+    """The fixture's stored pixels are what the JAX package's native loader
+    (134 px) and its cv2 ``decode_canonical`` (224 px) give for its JPEGs
+    today; its files are those path O and the tool that made it name."""
+    tool = _fixture_tool()
+    assert tuple(tool.FILES) == path_o.FIXTURE_FILES
+    assert tool.CV2_FILES == path_o.FIXTURE_CV2_FILES
+    assert tool.PNG_NAMED_JPG == path_o.FIXTURE_PNG
+    assert (tool.SIDE, tool.SERVE_SIDE) == (path_o.FIXTURE_SIDE,
+                                             path_o.FIXTURE_SERVE_SIDE)
+    fix = path_o.FIXTURE
+    assert sum(p.stat().st_size for p in fix.iterdir()) < 1 << 20
+    want = np.load(fix / "expected.npz")
+    files = [str(fix / f) for f in path_o.FIXTURE_FILES]
+    loader = JaxNativeLoader(_indexed(files), 1, path_o.FIXTURE_SIDE)
+    np.testing.assert_array_equal(loader.sample(np.arange(len(files))),
+                                  want["libjpeg_134"])
+    loader.close()
+    np.testing.assert_array_equal(
+        np.stack([jpipeline.decode_canonical(str(fix / f),
+                                             path_o.FIXTURE_SERVE_SIDE)
+                  for f in path_o.FIXTURE_CV2_FILES]), want["cv2_224"])
+    with pytest.raises(ValueError, match="libjpeg could not decode"):
+        native_loader.decode_rgb((fix / path_o.FIXTURE_PNG).read_bytes())
+
+
+def check_card_route_needs_cuda():
+    """Without CUDA, ``device='cuda'`` (and the default) raises from the
+    loader, ``decode_files``, the generator, ``build_data`` under
+    ``DATA.LOADER: native`` and ``jpeg_card``: nothing falls back to
+    libjpeg."""
+    _, port, _ = _datasets()
+    files = _jpegs(port)[:4]
+    _, cfg = _configs(port)
+    cfg.DATA.LOADER = "native"
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(torch.cuda, "is_available", lambda: False):
+        calls = {
+            "loader": lambda **kw: native_loader.NativeCanonicalLoader(
+                _indexed(files), 2, SIZE, num_threads=1, **kw).close(),
+            "decode_files": lambda **kw: native_loader.decode_files(
+                files, SIZE, **kw),
+            "generator": lambda **kw: synthetic.make_synthetic_dataset(
+                os.path.join(tmp, "g"), num_classes=2, n_train=2, n_valid=1,
+                n_unlabeled=1, img_size=16, **kw),
+            "build_data": lambda **kw: build_data(cfg, **kw),
+        }
+        for name, call in calls.items():
+            for kw in ({}, {"device": "cuda"}):
+                with pytest.raises(RuntimeError, match="device='cpu'"):
+                    call(**kw)
+        for fn in (lambda: jpeg_card.decode_files(files, SIZE),
+                   lambda: jpeg_card.write_jpeg(os.path.join(tmp, "x.jpg"),
+                                                np.zeros((4, 4, 3), np.uint8))):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                fn()
+        with pytest.raises(ValueError, match="CUDA device"):
+            jpeg_card.decode_files(files, SIZE, device="cpu")
+
+
+def check_path_o_config_matches_yaml():
+    """Path O's fields are ``configs/synthetic_tpu_e2e.yaml``'s, and its
+    generator arguments the YAML header's."""
+    path = ROOT / "configs" / "synthetic_tpu_e2e.yaml"
+    raw = yaml.safe_load(path.read_text())
+    for section, fields in path_o.E2E.items():
+        assert {k: raw[section][k] for k in fields} == fields, section
+    kept = {k: v for section in ("DATA", "MODEL", "TRAIN")
+            for k, v in raw[section].items()}
+    assert set(kept) - {k for f in path_o.E2E.values() for k in f} == \
+        {"PATH", "ANNO"}  # the data paths, which path O sets itself
+    call = path.read_text().split("make_synthetic_dataset(")[1].split(")")[0]
+    header = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", call)}
+    assert header == path_o.GENERATOR, header
+    cfg = path_o.config("/data")
+    assert cfg.DATA.LOADER == "native" and cfg.TRAIN.FREQ_EVAL == 1
+    assert int(cfg.DATA.BATCH_SIZE) * (1 + 2 * int(cfg.DATA.MU)) == 480

@@ -2,7 +2,7 @@
 
 The import check runs in a fresh interpreter, so what the test process
 itself has imported cannot hide a leak. It covers every module of the
-package and ``tests/torch_port_checks/path_{c,...,l,n,p}.py``, which
+package and ``tests/torch_port_checks/path_{c,...,l,n,o,p}.py``, which
 ``chip_smoke.py`` runs on the card's machine: no JAX and nothing of
 ``endoscopy_tpu``, and none of what that machine lacks (pandas, cv2, PIL,
 PyYAML) at import time. ``chip_smoke.py`` itself is read, not run: no
@@ -56,7 +56,7 @@ NOT_ON_THE_CARD = ("jax", "jaxlib", "flax", "optax", "orbax", "endoscopy_tpu",
 
 def check_package_imports_no_jax():
     mods = _modules() + [f"torch_port_checks.path_{p}"
-                         for p in "cdefghijklnp"]
+                         for p in "cdefghijklnop"]
     assert {"endoscopy_tpu_torch.ops.randaugment_kernel",
             "endoscopy_tpu_torch.cli.learn",
             "endoscopy_tpu_torch.ckpt.io",
@@ -79,7 +79,14 @@ def check_package_imports_no_jax():
             "endoscopy_tpu_torch.parallel.sharding",
             "endoscopy_tpu_torch.data.native_loader",
             "endoscopy_tpu_torch.data.synthetic",
-            "endoscopy_tpu_torch.data.csv_table"} <= set(mods)
+            "endoscopy_tpu_torch.data.csv_table",
+            "endoscopy_tpu_torch.data.jpeg_card",
+            "endoscopy_tpu_torch.data.preprocess",
+            "endoscopy_tpu_torch.eval.visualize",
+            "endoscopy_tpu_torch.utils.plotting",
+            "endoscopy_tpu_torch.cli.preprocess",
+            "endoscopy_tpu_torch.cli.split_data",
+            "endoscopy_tpu_torch.cli.eda"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

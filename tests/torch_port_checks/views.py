@@ -49,11 +49,12 @@ def _eval_view_matches_jax(dtype):
         np.testing.assert_allclose(got, ref, rtol=2 ** -7, atol=2 ** -7)
 
 
-def _jax_draws(key, n):
+def _jax_draws(key, n, img=IMG):
     """The flips, crop offsets and (pi, pf) that jax fixmatch_views draws
-    from ``key`` on its Pallas path (aug/views.py:121-141)."""
+    from ``key`` on its Pallas path (aug/views.py:121-141) at side
+    ``img``."""
     k_pre, k_ra = jax.random.split(key)
-    padding = int(IMG * 0.125)
+    padding = int(img * 0.125)
     flips, tops, lefts = [], [], []
     for k in jax.random.split(k_pre, n):
         k_flip, k_crop = jax.random.split(k)
@@ -61,7 +62,7 @@ def _jax_draws(key, n):
         t, l = jops.sample_crop_offsets(k_crop, 2 * padding)
         tops.append(int(t))
         lefts.append(int(l))
-    pi, pf = rk.sample_randaugment_params(k_ra, n, IMG, IMG)
+    pi, pf = rk.sample_randaugment_params(k_ra, n, img, img)
     return (np.asarray(flips), np.asarray(tops, np.int32),
             np.asarray(lefts, np.int32), np.array(pi), np.array(pf))
 
