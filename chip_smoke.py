@@ -288,31 +288,38 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    runs in a process of its own, started beside the RandAugment kernel's.
    O0: g++, ``jpeglib.h`` and ``libjpeg`` (the CPU route's; none on the
    card's machine so far), ``nvjpeg.h``, ``libnvjpeg`` and nvJPEG's
-   version, each backend's creation and decode rate on 224 copies of a
-   fixture file, the fixed backend (``jpeg_card.BACKEND``), the build
-   seconds. O1: on the fixture (the generator's 4:2:0 at quality 92, a
-   4:4:4, a grayscale, a 161 x 127 and a cv2 quality-95 file), the card's
-   decode at 134 px against libjpeg's (the core's ``decode_files`` on the
+   version, each backend's creation and the time of one batched decode
+   (``nvjpegDecodeBatched``) of 1, 32 and 224 copies of a fixture file
+   and of 1 by the single-image call, the fixed backend
+   (``jpeg_card.BACKEND``), the build seconds. O1: on the fixture (the generator's 4:2:0 at quality 92, a
+   4:4:4, a grayscale, a 161 x 127 and a cv2 quality-95 file, decoded as
+   one batch), the card's decode at 134 px against libjpeg's (the core's ``decode_files`` on the
    build host): a mean |d| below 4.0 per file, the max and the share above
    4 printed; the server's card decode at 224 px against cv2's within the
-   same bound; the resize kernel against its plain version on the same
-   decoded pixels, 0; a file cut to 100 bytes, an empty file and a PNG
-   named ``.jpg``: the stream skips each and warns, ``sample()`` and
-   ``decode_files`` raise, an all-corrupt manifest raises. O2: the
+   same bound, and its time; the resize kernel against its plain version
+   on the same decoded pixels, 0; a file cut to 100 bytes, an empty file
+   and a PNG named ``.jpg``: the stream skips each and warns, ``sample()``
+   and ``decode_files`` raise, an all-corrupt manifest raises; batches of
+   three, a broken file between two whole ones (``path_o.broken_jpegs``):
+   12-bit samples fail the batched call and all three are decoded again,
+   that one alone failing; a file cut before its scan is left out of the
+   call; a file cut in half decodes; the whole files' pixels equal a clean
+   batch's, and a clean batch of three decodes after them. O2: the
    generator on the card with ``synthetic_tpu_e2e.yaml``'s header
    arguments (928 JPEGs at 160 px), two single-thread loaders with one
    seed identical for 4 batches (the second read through two iterators,
    as two epochs read it) and ``sample()`` = ``decode_files``, the
-   32- and 224-image streams' images/s at 134 px, nvJPEG's decode of the
-   224-image batch on 1 and 2 threads, the resize kernel on it against its
-   plain version, its bound and ``F.interpolate``. O3: ``run_config`` on
+   32- and 224-image streams' images/s at 134 px, nvJPEG's batched decode
+   of the 224-image batch, the resize kernel on it against its plain
+   version, its bound and ``F.interpolate``. O3: ``run_config`` on
    those files (``synthetic_tpu_e2e.yaml``'s fields with ``DATA.LOADER:
    native``: ResNet-50, 112 px, 480 images a step, 3 epochs of 64 steps,
    an evaluation and a checkpoint after each epoch, EMA decay 0.9): 192
    kernel launches in 192 steps, the resize kernel at least twice a step,
    the train loss falling, the teacher's macro-F1 >= 0.9 after epoch 3,
-   ``epoch_1..3``; the step (wall / steps) against path C's and the
-   host's wait on the loaders a step.
+   ``epoch_1..3``; one decode call a batch and no re-decode; the
+   step (wall / steps) against path C's and D1's and the host's wait on
+   the loaders a step.
 19. path P: the supervised branches no preset reaches
    (``tests/torch_port_checks/path_p.py``): the margin step (arcface, the
    bias-free head), the focal, LDAM, label-smoothing and poly-BCE losses,
@@ -1913,9 +1920,10 @@ def phase_jpeg_probe(builds: dict):
     """Path O0: what this machine offers for JPEG files. g++'s version,
     the ``jpeglib.h`` and ``libjpeg.so`` of the CPU route (none on the
     card's machine so far), ``nvjpeg.h`` and ``libnvjpeg`` with nvJPEG's
-    version, each nvJPEG backend's creation and decode of 224 copies of the
-    fixture's generator file on one thread, the backend the port fixes
-    (``jpeg_card.BACKEND``) and the build seconds."""
+    version, each nvJPEG backend's creation and one batched decode of 1,
+    32 and 224 copies of the fixture's generator file (and 1 by the
+    single-image call), the backend the port fixes (``jpeg_card.BACKEND``)
+    and the build seconds."""
     import glob
     import shutil
 
@@ -1942,26 +1950,34 @@ def phase_jpeg_probe(builds: dict):
            "nvjpeg_version": ".".join(map(str, jpeg_card.version())),
            "backend": jpeg_card.BACKEND, **builds}
     payload = (path_o.FIXTURE / path_o.FIXTURE_FILES[0]).read_bytes()
-    probe = jpeg_card.probe_backends([payload] * BATCH, repeats=3)
-    out["backends"] = {
-        name: {"create_status": c, "decode_status": d,
-               "images_per_s": BATCH / s if s else None}
-        for name, (c, d, s) in probe.items()}
+    # the server's batch of 1, the labeled stream's 32 and the unlabeled
+    # stream's 224, batched, and 1 by the single-image call (nvjpegDecode)
+    out["backends"] = {}
+    for n, batched in ((1, True), (1, False), (32, True), (BATCH, True)):
+        probe = jpeg_card.probe_backends([payload] * n, repeats=3,
+                                         batched=batched)
+        out["backends"][f"{n}{'' if batched else ' single'}"] = {
+            name: {"create_status": c, "decode_status": d,
+                   "ms": s * 1e3 if s else None}
+            for name, (c, d, s) in probe.items()}
     print(f"path O0: g++ {out['gxx']!r}; jpeglib.h {out['jpeglib_h']}, "
           f"libjpeg {out['libjpeg']} (the CPU route's libjpeg core "
           + ("can" if out["jpeglib_h"] else "cannot") + " be built here); "
           f"nvjpeg.h {out['nvjpeg_h']}, libnvjpeg {out['libnvjpeg']}, nvJPEG "
-          f"{out['nvjpeg_version']}; backends on {BATCH} copies of "
-          f"{path_o.FIXTURE_FILES[0]} (create status, decode status, "
-          f"images/s on one thread): "
-          + ", ".join(f"{k} {v['create_status']}, {v['decode_status']}, "
-                      + (f"{v['images_per_s']:.0f}" if v["images_per_s"]
-                         else "-") for k, v in out["backends"].items())
+          f"{out['nvjpeg_version']}; each backend on copies of "
+          f"{path_o.FIXTURE_FILES[0]} (create status, decode status, ms of "
+          f"one nvjpegDecodeBatched call, or of one nvjpegDecode a payload "
+          f"where 'single'): "
+          + "; ".join(f"{n}: " + ", ".join(
+              f"{k} {v['create_status']}, {v['decode_status']}, "
+              + (f"{v['ms']:.3f}" if v["ms"] else "-")
+              for k, v in row.items())
+              for n, row in out["backends"].items())
           + f"; the port's fixed backend: {out['backend']}; built jpeg_card "
           f"in {builds['jpeg_card_build_s']:.1f} s and the bytes-only core in "
           f"{builds['bytes_core_build_s']:.2f} s", flush=True)
-    used = out["backends"][out["backend"]]
-    if used["create_status"] or used["decode_status"]:
+    used = [row[out["backend"]] for row in out["backends"].values()]
+    if any(u["create_status"] or u["decode_status"] for u in used):
         fail(f"path O0: the fixed nvJPEG backend {out['backend']} does not "
              f"decode here: {used}")
     return out
@@ -2006,22 +2022,25 @@ def phase_jpeg_decode(out_dir: Path):
     want = np.load(fix / "expected.npz")
     side = path_o.FIXTURE_SIDE
     out = {"files": {}, "serve": {}}
-    kernel_err = 0.0
+    jpeg_card.decode_raw.calls = jpeg_card.decode_raw.redecodes = 0
+    flat, offsets, hw, status = jpeg_card.decode_raw(
+        [(fix / name).read_bytes() for name in path_o.FIXTURE_FILES])
+    got = jpeg_card.resize_bilinear(flat, offsets, hw, side)
+    plain = jpeg_card.resize_bilinear_plain(flat, offsets, hw, side)
+    errs = (got.int() - plain.int()).flatten(1).abs().max(1).values.tolist()
+    kernel_err = float(max(errs))
     for i, name in enumerate(path_o.FIXTURE_FILES):
-        flat, offsets, hw, status = jpeg_card.decode_raw(
-            [(fix / name).read_bytes()])
-        got = jpeg_card.resize_bilinear(flat, offsets, hw, side)
-        plain = jpeg_card.resize_bilinear_plain(flat, offsets, hw, side)
-        err = float((got.int() - plain.int()).abs().max())
-        kernel_err = max(kernel_err, err)
-        out["files"][name] = {"hw": hw[0].tolist(), "status": status[0],
-                              "kernel_max_abs_err": err,
-                              **_diff_stats(got[0], want["libjpeg_134"][i])}
+        out["files"][name] = {"hw": hw[i].tolist(), "status": status[i],
+                              "kernel_max_abs_err": float(errs[i]),
+                              **_diff_stats(got[i], want["libjpeg_134"][i])}
     decode = card_decoder(torch.device("cuda"))
     for j, name in enumerate(path_o.FIXTURE_CV2_FILES):
         got = torch.from_numpy(decode((fix / name).read_bytes(),
                                       path_o.FIXTURE_SERVE_SIDE))
         out["serve"][name] = _diff_stats(got, want["cv2_224"][j])
+    payload = (fix / path_o.FIXTURE_CV2_FILES[0]).read_bytes()
+    out["serve_decode_ms"] = host_ms(
+        lambda: decode(payload, path_o.FIXTURE_SERVE_SIDE), iters=20)
     for name, r in out["files"].items():
         print(f"path O1: {name} {r['hw']} at {side} px, nvJPEG ({jpeg_card.BACKEND}) "
               f"+ the resize kernel against libjpeg's core: mean |d| "
@@ -2034,6 +2053,10 @@ def phase_jpeg_decode(out_dir: Path):
               f"{path_o.FIXTURE_SERVE_SIDE} px against cv2's: mean |d| "
               f"{r['mean']:.4f}, max {r['max']:.0f}, share above 4 "
               f"{r['share_above_4']:.5f}", flush=True)
+    print(f"path O1: the server's card decode of one "
+          f"{path_o.FIXTURE_CV2_FILES[0]} at {path_o.FIXTURE_SERVE_SIDE} px "
+          f"(a batch of 1, host clock, to pixels on the host) "
+          f"{out['serve_decode_ms']:.3f} ms", flush=True)
     worst = max(r["mean"] for r in [*out["files"].values(),
                                     *out["serve"].values()])
     if worst >= jpeg_card.DECODE_MEAN_LSB:
@@ -2078,17 +2101,81 @@ def phase_jpeg_decode(out_dir: Path):
         all_raised = str(exc)
     all_bad.close()
     shutil.rmtree(tmp, ignore_errors=True)
+    calls = {k: getattr(jpeg_card.decode_raw, k)
+             for k in ("calls", "redecodes")}
     out["corrupt"] = {"batch_rows": sorted(t.tolist()), "warnings": skipped,
-                      "raised": raised, "all_corrupt": all_raised}
+                      "raised": raised, "all_corrupt": all_raised,
+                      "decode_calls": calls}
     print(f"path O1: corrupt files on the card (a file cut to 100 bytes, an "
           f"empty one, a PNG named .jpg): the stream's batch rows "
           f"{sorted(t.tolist())}, warned {skipped[:1]}; sample() and "
           f"decode_files raised {[r[:70] for r in raised]}; an all-corrupt "
-          f"manifest raised {all_raised!r}", flush=True)
+          f"manifest raised {all_raised!r}; decode calls {calls['calls']}, "
+          f"payloads decoded again alone after a failed batch "
+          f"{calls['redecodes']}", flush=True)
     if (set(t.tolist()) & set(bad) or not skipped or len(raised) != 2
             or not all_raised or x.device.type != "cuda"):
         fail("path O1: the card's corrupt-input contract does not hold")
+    out["broken"] = _broken_batches(
+        (fix / path_o.FIXTURE_FILES[0]).read_bytes())
     out["kernel_max_abs_err"] = kernel_err
+    return out
+
+
+def _decoded_images(flat, offsets, hw) -> list:
+    """Each image of a decoded batch as its ``(h, 3 w)`` bytes on the host,
+    None where it did not decode."""
+    from endoscopy_tpu_torch.data import jpeg_card
+
+    out = []
+    for off, (h, w) in zip(offsets.tolist(), hw.tolist()):
+        pitch = jpeg_card.row_pitch(w)
+        out.append(flat[off:off + h * pitch].view(h, pitch)[:, :3 * w].cpu()
+                   if h else None)
+    return out
+
+
+def _broken_batches(whole: bytes) -> dict:
+    """Path O1's batches of three, each a broken copy of ``whole``
+    (``path_o.broken_jpegs``) between two whole ones: the statuses, the
+    re-decodes, and whether the whole ones' pixels equal a clean batch's;
+    then a clean batch of three. Fails unless the 12-bit file fails the
+    batched call and is the one payload of the three re-decodes that
+    fails, the file with no scan is left out of the call, the half file
+    decodes, and the clean batch decodes."""
+    import torch
+
+    from endoscopy_tpu_torch.data import jpeg_card
+
+    clean = _decoded_images(*jpeg_card.decode_raw([whole] * 3)[:3])[0]
+    out = {}
+    for how, bad in path_o.broken_jpegs(whole).items():
+        before = jpeg_card.decode_raw.redecodes
+        try:
+            flat, offsets, hw, status = jpeg_card.decode_raw([whole, bad, whole])
+        except RuntimeError as exc:
+            fail(f"path O1: the batch with the {how} file raised: {exc}")
+        got = _decoded_images(flat, offsets, hw)
+        out[how] = {"status": list(status),
+                    "redecodes": jpeg_card.decode_raw.redecodes - before,
+                    "whole_equal": all(got[i] is not None and
+                                       torch.equal(got[i], clean)
+                                       for i in (0, 2))}
+    out["clean_after"] = list(jpeg_card.decode_raw([whole] * 3)[3])
+    print(f"path O1: batches of three, a broken copy of "
+          f"{path_o.FIXTURE_FILES[0]} between two whole ones (statuses, "
+          f"payloads decoded again alone, the whole ones' pixels equal to a "
+          f"clean batch's): {out}", flush=True)
+    want = {"12_bit": (3, True), "no_scan": (0, True), "half": (0, False)}
+    for how, (redecodes, fails) in want.items():
+        r = out[how]
+        code = r["status"][1]
+        if not (r["status"][0] == r["status"][2] == 0 and r["whole_equal"]
+                and r["redecodes"] == redecodes
+                and (code in jpeg_card.BAD_INPUT if fails else code == 0)):
+            fail(f"path O1: the batch with the {how} file: {r}")
+    if any(out["clean_after"]):
+        fail(f"path O1: a clean batch after them: {out['clean_after']}")
     return out
 
 
@@ -2161,11 +2248,8 @@ def phase_jpeg_loaders(seed: int, out_dir: Path):
     files = list(manifests["unlabeled"].paths[np.arange(streams["unlabeled"])
                                               % len(manifests["unlabeled"])])
     payloads = jpeg_card.read_files(files)
-    decode_ms = {}
-    for threads in (1, workers):
-        jpeg_card.decode_raw(payloads, threads=threads)
-        decode_ms[threads] = host_ms(
-            lambda: jpeg_card.decode_raw(payloads, threads=threads), iters=3)
+    jpeg_card.decode_raw(payloads)
+    decode_ms = host_ms(lambda: jpeg_card.decode_raw(payloads), iters=5)
     flat, offsets, hw, _ = jpeg_card.decode_raw(payloads)
     kern = jpeg_card.resize_bilinear(flat, offsets, hw, size)
     plain = jpeg_card.resize_bilinear_plain(flat, offsets, hw, size)
@@ -2175,6 +2259,7 @@ def phase_jpeg_loaders(seed: int, out_dir: Path):
     plain_ms = cuda_ms(lambda: jpeg_card.resize_bilinear_plain(
         flat, offsets, hw, size), iters=2, warmup=1)
     h, w = (int(v) for v in hw[0].tolist())
+    assert jpeg_card.row_pitch(w) == 3 * w  # the batch is dense: one view
     as_float = flat[:len(files) * h * w * 3].view(len(files), h, w, 3
                                                   ).permute(0, 3, 1, 2).float()
     library_ms = cuda_ms(lambda: F.interpolate(
@@ -2197,11 +2282,10 @@ def phase_jpeg_loaders(seed: int, out_dir: Path):
           f"{out['sample_equals_decode_files']}; images/s at {size} px with "
           f"{workers} threads: the {streams['labeled']}-image stream "
           f"{rates['labeled']:.1f}, the {streams['unlabeled']}-image stream "
-          f"{rates['unlabeled']:.1f}; nvJPEG's decode of {len(files)} "
-          f"{h} x {w} files (host clock, waited for): "
-          + ", ".join(f"{v:.3f} ms on {k} thread(s)"
-                      for k, v in decode_ms.items())
-          + f"; the resize kernel {len(files)} x {h} px -> {size} px "
+          f"{rates['unlabeled']:.1f}; nvJPEG's batched decode of "
+          f"{len(files)} {h} x {w} files ({jpeg_card.BACKEND}, one "
+          f"nvjpegDecodeBatched call, host clock, waited for) "
+          f"{decode_ms:.3f} ms; the resize kernel {len(files)} x {h} px -> {size} px "
           f"{ms:.4f} ms (bound {bound_ms:.4f}: {bytes_moved} B at "
           f"{HBM_BYTES_PER_S:.3g} B/s), its plain version {plain_ms:.3f}, "
           f"F.interpolate (float32) {library_ms:.4f}; kernel vs plain "
@@ -2211,7 +2295,8 @@ def phase_jpeg_loaders(seed: int, out_dir: Path):
     return root, out
 
 
-def phase_jpeg_learn(seed: int, out_dir: Path, root: Path, c_step_ms: float):
+def phase_jpeg_learn(seed: int, out_dir: Path, root: Path, c_step_ms: float,
+                     d1_step_ms: list):
     """Path O3: ``cli/learn.py::run_config`` on the generator's JPEG files
     with ``DATA.LOADER: native`` on the card (``synthetic_tpu_e2e.yaml``'s
     fields and path O's cuts)."""
@@ -2242,16 +2327,19 @@ def phase_jpeg_learn(seed: int, out_dir: Path, root: Path, c_step_ms: float):
     torch.manual_seed(seed)  # the model's own initialization, seeded
     rk.randaugment_mc.launches = 0
     jpeg_card.resize_bilinear.launches = 0
+    jpeg_card.decode_raw.calls = jpeg_card.decode_raw.redecodes = 0
     t0 = time.perf_counter()
     with mock.patch.object(native_loader.NativeCanonicalLoader, "__iter__",
                            timed_iter):
         trainer, _ = learn.run_config(cfg, device="cuda")
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    for dl in (*trainer.train_dl, trainer.valid_dl):
+        dl.close()  # waits for the batches in flight
     launches = rk.randaugment_mc.launches
     resize_launches = jpeg_card.resize_bilinear.launches
-    for dl in (*trainer.train_dl, trainer.valid_dl):
-        dl.close()
+    decodes = {k: getattr(jpeg_card.decode_raw, k)
+               for k in ("calls", "redecodes")}
     log = _log_records(out_dir / "log")
     train = [r for r in log if "loss/train" in r]
     valid = [r for r in log if "loss/valid" in r]
@@ -2263,19 +2351,26 @@ def phase_jpeg_learn(seed: int, out_dir: Path, root: Path, c_step_ms: float):
           f"native, nvJPEG + the resize kernel), {epochs} epochs of {steps} "
           f"steps of {images} images in {fit_s:.2f} s; step ms (wall / steps) "
           f"{[round(t, 3) for t in step_ms]} against path C's isolated "
-          f"{c_step_ms:.3f}; images/s "
+          f"{c_step_ms:.3f} and D1's fit step on in-memory arrays "
+          f"{[round(t, 3) for t in d1_step_ms]} (O3 / D1, medians: "
+          f"{np.median(step_ms) / np.median(d1_step_ms):.3f}); images/s "
           f"{[round(r['throughput/images_per_sec'], 1) for r in train]}; the "
           f"host's wait on the loaders {wait_ms:.3f} ms a step (median batch "
           f"{np.median(waits) * 1e3:.3f} ms, max {max(waits) * 1e3:.1f}); "
           f"train loss {[round(r['loss/train'], 4) for r in train]}, teacher "
           f"macro-F1 {[r['metric/macro_f1'] for r in valid]}; randaugment_mc "
-          f"launches {launches}, resize launches {resize_launches}; "
-          f"checkpoints {saved}", flush=True)
+          f"launches {launches}, resize launches {resize_launches}; decoded "
+          f"batches (one nvjpegDecodeBatched call each) {decodes['calls']}, "
+          f"re-decodes {decodes['redecodes']}; checkpoints "
+          f"{saved}", flush=True)
     if launches != epochs * steps:
         fail(f"path O3: {launches} kernel launches in {epochs * steps} steps")
     if resize_launches < 2 * epochs * steps:
         fail(f"path O3: {resize_launches} resize launches in "
              f"{epochs * steps} steps of two streams")
+    if decodes["redecodes"] or decodes["calls"] != resize_launches:
+        fail(f"path O3: decode calls {decodes} for {resize_launches} "
+             "batches: one batched call a batch and no re-decode expected")
     if not train[-1]["loss/train"] < train[0]["loss/train"]:
         fail("path O3: the train loss did not fall from epoch 1 to "
              f"{epochs}")
@@ -2287,7 +2382,8 @@ def phase_jpeg_learn(seed: int, out_dir: Path, root: Path, c_step_ms: float):
     shutil.rmtree(out_dir / "ckpt", ignore_errors=True)
     return {"launches": launches, "steps": epochs * steps,
             "resize_launches": resize_launches, "step_ms": step_ms,
-            "c_step_ms": c_step_ms, "loader_wait_ms_per_step": wait_ms,
+            "c_step_ms": c_step_ms, "d1_step_ms": d1_step_ms,
+            "decode_calls": decodes, "loader_wait_ms_per_step": wait_ms,
             "macro_f1": [r["metric/macro_f1"] for r in valid],
             "train_loss": [r["loss/train"] for r in train], "fit_s": fit_s}
 
@@ -4340,7 +4436,7 @@ def main(argv=None) -> int:
     print(f"path O2 took {time.perf_counter() - t0:.1f} s", flush=True)
     print("path O2: " + json.dumps(rows["O2"]), flush=True)
     run("O3", phase_jpeg_learn, args.seed, scratch / "path_o", synth,
-        rows["C"]["full"]["step_ms_median"])
+        rows["C"]["full"]["step_ms_median"], rows["D"]["step_ms"])
     run("Q", phase_preview, args.seed, scratch / "path_o", synth)
     shutil.rmtree(scratch / "path_o", ignore_errors=True)
     run("P", phase_branches, args.seed)
@@ -4426,6 +4522,8 @@ def main(argv=None) -> int:
         "library": "torch.nn.functional.interpolate, bilinear, float32",
         "shape": rows["O2"]["resize"]["shape"],
         "nvjpeg_decode_ms": rows["O2"]["decode_ms"],
+        "nvjpeg_backend": rows["O0"]["backend"],
+        "decode_calls": rows["O3"]["decode_calls"],
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,19 +5,24 @@ On the CPU the native loader decodes with libjpeg (``data/csrc/loader.cpp``,
 bit for bit the JAX package's core). The card's machine has no libjpeg, and
 the decoded pixels are wanted on the card anyway, so there the route is:
 
-- **decode**: nvJPEG (the CUDA toolkit's ``libnvjpeg``) decodes each file's
-  bytes to interleaved RGB in device memory, on the caller's device and
-  current stream, with one fixed backend (:data:`BACKEND`). This is a
-  library call in the place of libjpeg, which is host code in the JAX
-  package, not a TPU kernel. Its pixels are not libjpeg's (another IDCT
-  and chroma upsampling): they are held to the JAX package's own bound for
-  a second decoder, a mean |Δ| below :data:`DECODE_MEAN_LSB` per image
-  against libjpeg's decode (``tests/test_native_loader.py``);
+- **decode**: nvJPEG (the CUDA toolkit's ``libnvjpeg``) decodes a batch
+  of files' bytes to interleaved RGB in device memory in one
+  ``nvjpegDecodeBatched`` call, on the caller's device and current stream,
+  with one fixed backend (:data:`BACKEND`), into one flat buffer whose
+  offsets and row pitches are multiples of :data:`ALIGN` bytes
+  (:func:`row_pitch`). This is a library call in the place of libjpeg,
+  which is host code in the JAX package, not a TPU kernel. Its pixels are
+  not libjpeg's (another IDCT and chroma upsampling): they are held to the
+  JAX package's own bound for a second decoder, a mean |Δ| below
+  :data:`DECODE_MEAN_LSB` per image against libjpeg's decode
+  (``tests/test_native_loader.py``);
 - **resize**: :func:`resize_bilinear`, a kernel written by hand
-  (``data/csrc/jpeg_card.cu``): the core's ``resize_bilinear`` with one
-  thread per output pixel, the C++ code's float32 operations in their
-  order, so it gives the core's bytes exactly from the same decoded pixels.
-  :func:`resize_bilinear_plain` is its plain PyTorch version: the CPU tests
+  (``data/csrc/jpeg_card.cu``): the core's ``resize_bilinear``, one block
+  per image and band of output rows, its axis tables computed once per
+  block, its source rows staged in shared memory by 16-byte copies and its
+  output written by 16-byte stores, the C++ code's float32 operations in
+  their order, so it gives the core's bytes exactly from the same decoded
+  pixels. :func:`resize_bilinear_plain` is its plain PyTorch version: the CPU tests
   and ``chip_smoke.py`` hold the kernel against it, and nothing on the
   card's path calls it. Each launch adds one to
   ``resize_bilinear.launches``;
@@ -45,10 +50,16 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-Xptxas=-v")
 # nvjpegBackend_t values
 BACKENDS = {"default": 0, "hybrid": 1, "gpu_hybrid": 2, "hardware": 3}
-# The backend of every decoder: host Huffman decoding, the IDCT and colour
-# conversion on the card, through nvjpegDecode (the probe of path O0 of
-# chip_smoke.py decodes a file with each backend and prints which can).
-BACKEND = "hybrid"
+# The backend of every decoder, the fastest batched decode of path O0's
+# probe (chip_smoke.py: one nvjpegDecodeBatched call on copies of a 160 px
+# fixture file; on an NVIDIA H100 80GB HBM3 at 700 W, nvJPEG 12.4). At 224
+# images gpu_hybrid 5.5-6.2 ms (Huffman decoding on the card), hybrid
+# 33.2-49.4, default 31.7-53.0. At 32 and at 1 no backend leads: 4.8-8.4 ms
+# and 0.25-0.40 ms for each of the three (one nvjpegDecode of 1:
+# 0.23-0.41). hardware is refused at creation with status 7.
+BACKEND = "gpu_hybrid"
+# the decoded batch's offsets and row pitches are multiples of ALIGN bytes
+ALIGN = 16
 JPEG_QUALITY = 92  # the JAX generator's cv2.IMWRITE_JPEG_QUALITY
 # the JAX package's bound for a second decoder against libjpeg's pixels
 DECODE_MEAN_LSB = 4.0
@@ -98,16 +109,31 @@ def _card(device) -> torch.device:
 # -- the resize kernel and its plain version ---------------------------------
 
 
+def row_pitch(w: int) -> int:
+    """The bytes between two rows of a ``w``-pixel RGB image in a decoded
+    batch: ``3 w`` rounded up to :data:`ALIGN`."""
+    return -(-3 * int(w) // ALIGN) * ALIGN
+
+
 def pack(images: Sequence[torch.Tensor]
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(flat, offsets, hw)`` of ``(h, w, 3)`` uint8 images on one device:
-    the layout the resize takes (the decode returns it)."""
+    """``(flat, offsets, hw)`` of ``(h, w, 3)`` uint8 images on one device,
+    in the decoded batch's layout (the decode returns it; the resize takes
+    it): image ``i``'s rows ``row_pitch(w)`` bytes apart from
+    ``flat[offsets[i]:]``, every offset a multiple of :data:`ALIGN`, the
+    padding zeros."""
     dev = images[0].device if images else torch.device("cpu")
-    sizes = [int(im.numel()) for im in images]
+    rows = []
+    for im in images:
+        h, w = int(im.shape[0]), int(im.shape[1])
+        padded = im.new_zeros((h, row_pitch(w)))
+        padded[:, :3 * w] = im.reshape(h, 3 * w)
+        rows.append(padded.view(-1))
+    sizes = [int(r.numel()) for r in rows]
     offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64) \
         if images else np.zeros(0, np.int64)
-    flat = (torch.cat([im.contiguous().view(-1) for im in images]) if images
-            else torch.zeros(1, dtype=torch.uint8, device=dev))
+    flat = (torch.cat(rows) if rows else
+            torch.zeros(ALIGN, dtype=torch.uint8, device=dev))
     hw = torch.tensor([[im.shape[0], im.shape[1]] for im in images],
                       dtype=torch.int32).view(-1, 2)
     return flat, torch.from_numpy(offsets).to(dev), hw.to(dev)
@@ -149,12 +175,17 @@ def _resize_one(img: torch.Tensor, size: int) -> torch.Tensor:
 def resize_bilinear_plain(flat: torch.Tensor, offsets: torch.Tensor,
                           hw: torch.Tensor, size: int) -> torch.Tensor:
     """The plain PyTorch version of the resize kernel: ``(N, size, size,
-    3)`` uint8, image ``i`` the ``hw[i]`` RGB rows at ``flat[offsets[i]:]``
-    (an image with a side below 2 gives zeros)."""
+    3)`` uint8, image ``i`` the ``hw[i]`` RGB rows at ``flat[offsets[i]:]``,
+    ``row_pitch(w)`` bytes apart (an image with a side below 2 gives
+    zeros)."""
     out = []
     for off, (h, w) in zip(offsets.tolist(), hw.tolist()):
-        img = flat[off:off + h * w * 3].view(h, w, 3) if h >= 2 and w >= 2 \
-            else flat.new_zeros((h, w, 3))
+        if h >= 2 and w >= 2:
+            pitch = row_pitch(w)
+            img = flat[off:off + h * pitch].view(h, pitch)[:, :3 * w]
+            img = img.reshape(h, w, 3)
+        else:
+            img = flat.new_zeros((h, w, 3))
         out.append(_resize_one(img, size))
     if not out:
         return flat.new_zeros((0, size, size, 3))
@@ -181,21 +212,35 @@ resize_bilinear.launches = 0
 # -- decode and encode --------------------------------------------------------
 
 
-def decode_raw(payloads: Sequence[bytes], device=None, threads: int = 1):
-    """nvJPEG's decode of each payload at its own size, on the card, by
-    ``threads`` host threads (nvJPEG's host part, the Huffman decode of
-    :data:`BACKEND`, runs on them): ``(flat, offsets, hw, statuses)``
+def decode_raw(payloads, device=None, lengths: Sequence[int] | None = None):
+    """nvJPEG's decode of the payloads at their own sizes, on the card, in
+    one ``nvjpegDecodeBatched`` call: ``(flat, offsets, hw, statuses)``
     (:func:`pack`'s layout; a payload that does not decode has ``(0, 0)``
-    and its ``nvjpegStatus_t``). Raises on a status that no file can
-    cause."""
+    and its ``nvjpegStatus_t``). ``payloads`` is a sequence of bytes or,
+    with ``lengths``, one uint8 array holding them one after another. A
+    payload whose header does not parse, or that has no scan, is left out
+    of the call; if the
+    call fails on its input, each of its payloads is decoded again alone on
+    the card to find which fail (counted in ``decode_raw.redecodes``).
+    Raises on a status that no input explains. ``decode_raw.calls`` counts
+    the calls."""
     dev = _card(device)
-    flat, offsets, hw, status = build().decode(
-        [bytes(p) for p in payloads], dev.index, int(threads))
+    if lengths is None:
+        lengths = [len(p) for p in payloads]
+        payloads = np.frombuffer(b"".join(payloads), np.uint8).copy()
+    data = torch.from_numpy(np.ascontiguousarray(payloads, np.uint8))
+    flat, offsets, hw, status, redecoded = build().decode(
+        data, [int(v) for v in lengths], dev.index)
+    decode_raw.calls += 1
+    decode_raw.redecodes += redecoded
     wrong = {s for s in status if s and s not in BAD_INPUT}
     if wrong:
         raise RuntimeError(f"nvJPEG failed with status {sorted(wrong)}, which "
                            "no input file explains")
     return flat, offsets, hw, status
+
+
+decode_raw.calls = decode_raw.redecodes = 0
 
 
 def decode_bytes(payloads: Sequence[bytes], size: int, device=None,
@@ -213,15 +258,17 @@ def decode_bytes(payloads: Sequence[bytes], size: int, device=None,
     return out
 
 
-def decode_some(payloads: Sequence[bytes], size: int, device=None,
-                threads: int = 1) -> Tuple[torch.Tensor, List[bool]]:
+def decode_some(payloads, size: int, device=None,
+                lengths: Sequence[int] | None = None
+                ) -> Tuple[torch.Tensor, List[bool]]:
     """Like :func:`decode_bytes`, but a payload that does not decode gives
-    a row of zeros and ``False`` in the second result."""
+    a row of zeros and ``False`` in the second result. ``payloads`` and
+    ``lengths`` as :func:`decode_raw` takes them."""
     size = int(size)
-    if not payloads:
+    if not len(payloads if lengths is None else lengths):
         return (torch.zeros((0, size, size, 3), dtype=torch.uint8,
                             device=_card(device)), [])
-    flat, offsets, hw, status = decode_raw(payloads, device, threads)
+    flat, offsets, hw, status = decode_raw(payloads, device, lengths)
     return resize_bilinear(flat, offsets, hw, size), [s == 0 for s in status]
 
 
@@ -262,13 +309,16 @@ def version() -> Tuple[int, int, int]:
     return tuple(build().version())
 
 
-def probe_backends(payloads: Sequence[bytes], device=None,
-                   repeats: int = 3) -> dict:
+def probe_backends(payloads: Sequence[bytes], device=None, repeats: int = 3,
+                   batched: bool = True) -> dict:
     """For each nvJPEG backend, a decoder of its own decoding ``payloads``
-    ``repeats`` times on one thread: ``(creation status, decode status,
-    seconds of the last pass)`` (status 0 is success)."""
+    ``repeats`` times, as one batch in one ``nvjpegDecodeBatched`` call or,
+    with ``batched`` false, one ``nvjpegDecode`` call a payload: ``(creation
+    status, decode status, seconds of the last repeat)`` (status 0 is
+    success)."""
     dev = _card(device)
     ext = build()
     data = [bytes(p) for p in payloads]
-    return {name: tuple(ext.probe(code, data, dev.index, int(repeats)))
+    return {name: tuple(ext.probe(code, data, dev.index, int(repeats),
+                                  bool(batched)))
             for name, code in BACKENDS.items()}

@@ -224,9 +224,10 @@ class _Handle:
             idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
         return imgs, idx
 
-    def next_bytes(self, n: int):
-        """The bytes-only core's next ``n`` files: ``(payloads, indices)``
-        (index -1: the all-unreadable sentinel)."""
+    def next_buffer(self, n: int):
+        """The bytes-only core's next ``n`` files, one after another in one
+        uint8 array: ``(buffer, lengths, indices)`` (index -1: the
+        all-unreadable sentinel)."""
         idx = np.empty(n, np.int64)
         lengths = np.empty(n, np.int64)
         total = self._lib.loader_next_bytes(
@@ -235,10 +236,7 @@ class _Handle:
         buf = np.empty(max(int(total), 1), np.uint8)
         self._lib.loader_copy_bytes(self._ptr,
                                     buf.ctypes.data_as(_P(ctypes.c_uint8)))
-        ends = np.cumsum(lengths)
-        data = buf.tobytes()
-        return [data[e - n_:e] for e, n_ in zip(ends.tolist(),
-                                                 lengths.tolist())], idx
+        return buf, lengths, idx
 
     def dropped(self) -> int:
         """Files the C++ core skipped as unreadable/undecodable so far."""
@@ -294,19 +292,18 @@ def decode_files(paths: Sequence[str], size: int, device=None):
 
 class _CardStream:
     """The card's batches: the bytes-only core's files in its index
-    stream, decoded by nvJPEG with ``threads`` host threads and resized on
-    the card, undecodable files skipped (the next files of the stream take
+    stream, decoded by nvJPEG in one batched call and resized on the card,
+    undecodable files skipped (the next files of the stream take
     their places, as the libjpeg core's workers skip them). Each batch is
     decoded on a CUDA stream of its own by a prefetch thread, one batch
     ahead."""
 
     def __init__(self, handle: "_Handle", n_paths: int, size: int,
-                 device: torch.device, threads: int) -> None:
+                 device: torch.device) -> None:
         self._handle = handle
         self._n_paths = n_paths
         self._size = size
         self._device = device
-        self._threads = threads
         self._stream = torch.cuda.Stream(device)
         self._skipped = 0  # undecodable on the card
         self._streak = 0  # failures since the last decoded file
@@ -320,11 +317,11 @@ class _CardStream:
         with torch.cuda.stream(self._stream):
             while n:
                 dropped = self._handle.dropped()
-                payloads, idx = self._handle.next_bytes(n)
+                buf, lengths, idx = self._handle.next_buffer(n)
                 if (idx < 0).any():  # a full pass read nothing
                     return None
-                imgs, ok = jpeg_card.decode_some(payloads, self._size,
-                                                 self._device, self._threads)
+                imgs, ok = jpeg_card.decode_some(buf, self._size,
+                                                 self._device, lengths)
                 self._streak += self._handle.dropped() - dropped
                 for k in ok:
                     self._streak = 0 if k else self._streak + 1
@@ -392,8 +389,7 @@ class NativeCanonicalLoader:
         self._handle = _Handle(manifest.paths, self.size, self._num_threads,
                                depth, int(seed), shuffle, bytes_only=card)
         self._card = (_CardStream(self._handle, len(manifest), self.size,
-                                  self.device, self._num_threads)
-                      if card else None)
+                                  self.device) if card else None)
 
     def _stream(self):
         """``(imgs, indices)`` batches; None once a full pass decoded

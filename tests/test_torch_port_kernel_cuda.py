@@ -1,4 +1,5 @@
-"""Port: the CUDA RandAugment kernel against its plain version, on the card.
+"""Port: the CUDA kernels (RandAugment, the JPEG route's resize) against
+their plain versions, on the card.
 
 Needs an NVIDIA card and nvcc: the kernel has no CPU mode, so these tests
 skip elsewhere. The file imports no JAX, so the card's machine runs it
@@ -13,7 +14,9 @@ import torch
 
 from endoscopy_tpu_torch.aug import ops
 from endoscopy_tpu_torch.aug import randaugment as tra
+from endoscopy_tpu_torch.data import jpeg_card
 from endoscopy_tpu_torch.ops import randaugment_kernel as tk
+from torch_port_checks import path_o
 
 torch.set_num_threads(1)
 
@@ -33,7 +36,9 @@ def test_kernel_matches_plain_on_card():
     strided input, a side above the kernel's limit, one FixMatch training
     step through the kernel on the card against the CPU, and one
     supervised step of each branch (no kernel) on the card against the
-    CPU."""
+    CPU. Then the resize kernel against its plain version on odd shapes,
+    1 and 224 images, and the card's decode on batches with a broken
+    file."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernel has no CPU mode")
     ext = tk.build()
@@ -46,6 +51,8 @@ def test_kernel_matches_plain_on_card():
     _side_above_the_limit_raises()
     _resnet_tiny_step_matches_cpu()
     _resnet_tiny_supervised_steps_match_cpu()
+    _resize_kernel_matches_plain()
+    _broken_file_in_a_batch()
 
 
 def _forced_case(side, mode, dtype, seed=0):
@@ -191,3 +198,72 @@ def _resnet_tiny_supervised_steps_match_cpu():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
+
+
+def _resize_kernel_matches_plain():
+    """The resize kernel (``data/csrc/jpeg_card.cu``) against its plain
+    version, bit for bit, in the decoded batch's padded layout: 161 x 127
+    (381-byte rows, no multiple of 16), sides of 1 (zeros), 3 x 7, a 160 →
+    224 upscale, 37 x 2000 → 134 (column chunks cut by the source span),
+    an output side of 300 (column chunks of 256) and of 134 and 224 (bands
+    of 16 and 12 rows, neither dividing the side); one image alone and
+    224 images of 160 x 160 (path O2's batch); one launch counted per call.
+    A buffer off its 16-byte boundary raises."""
+    gen = torch.Generator().manual_seed(3)
+
+    def image(h, w):
+        return torch.randint(0, 256, (h, w, 3), generator=gen,
+                             dtype=torch.uint8)
+
+    odd = [image(h, w) for h, w in ((161, 127), (1, 9), (9, 1), (3, 7),
+                                    (160, 160), (37, 2000), (127, 161))]
+    batch = [image(160, 160) for _ in range(224)]
+    cases = [([im], size) for im in odd for size in (134, 224)]
+    cases += [(odd, size) for size in (1, 134, 224, 300)]
+    cases += [(batch, 134), (batch, 112)]
+    for images, size in cases:
+        flat, offsets, hw = jpeg_card.pack([im.cuda() for im in images])
+        before = jpeg_card.resize_bilinear.launches
+        got = jpeg_card.resize_bilinear(flat, offsets, hw, size)
+        torch.cuda.synchronize()
+        assert jpeg_card.resize_bilinear.launches == before + 1
+        ref = jpeg_card.resize_bilinear_plain(flat, offsets, hw, size)
+        bad = (got != ref).flatten(1).any(1).nonzero().flatten().tolist()
+        assert not bad, (size, [tuple(images[i].shape) for i in bad[:4]])
+    flat, offsets, hw = jpeg_card.pack([odd[0].cuda()])
+    with pytest.raises(RuntimeError, match="16-byte"):
+        jpeg_card.resize_bilinear(torch.cat([flat, flat])[1:1 + flat.numel()],
+                                  offsets, hw, 134)
+
+
+def _broken_file_in_a_batch():
+    """Batches of 3 and 224 copies of a fixture file, row 1 a broken copy
+    (``path_o.broken_jpegs``). 12-bit samples: the batched call fails and
+    every payload is decoded again alone, row 1 alone failing; a file cut
+    before its scan: left out of the call, which succeeds. The other rows'
+    pixels equal a clean batch's, and a clean batch of the same size
+    decodes after a failed one."""
+    whole = (path_o.FIXTURE / path_o.FIXTURE_FILES[0]).read_bytes()
+    for n in (3, 224):
+        flat, offsets, hw, status = jpeg_card.decode_raw([whole] * n)
+        assert not any(status)
+        h, w = hw[0].tolist()
+        pitch = jpeg_card.row_pitch(w)
+
+        def image(flat, offsets, i):
+            at = int(offsets[i])
+            return flat[at:at + h * pitch].view(h, pitch)[:, :3 * w]
+
+        clean = image(flat, offsets, 0)
+        for how, redecodes in (("12_bit", n), ("no_scan", 0)):
+            payloads = [whole] * n
+            payloads[1] = path_o.broken_jpegs(whole)[how]
+            before = jpeg_card.decode_raw.redecodes
+            flat, offsets, hw, status = jpeg_card.decode_raw(payloads)
+            assert jpeg_card.decode_raw.redecodes - before == redecodes, how
+            assert status[1] in jpeg_card.BAD_INPUT, (how, status[1])
+            assert not any(status[:1] + status[2:]), how
+            assert hw[1].tolist() == [0, 0], how
+            for i in (0, n - 1):
+                assert torch.equal(image(flat, offsets, i), clean), (how, n, i)
+            assert not any(jpeg_card.decode_raw([whole] * n)[3]), (how, n)

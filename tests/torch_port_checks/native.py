@@ -357,42 +357,67 @@ def check_bytes_only_core_matches_libjpeg_core():
                                  bytes_only=True)
     for _ in range(5):
         _, want = cpu.next(16)
-        payloads, got = card.next_bytes(16)
+        buf, lengths, got = card.next_buffer(16)
         np.testing.assert_array_equal(got, want)
-        assert payloads == [Path(files[i]).read_bytes() for i in got]
+        assert buf[:lengths.sum()].tobytes() == b"".join(
+            Path(files[i]).read_bytes() for i in got)
+        assert lengths.tolist() == [os.path.getsize(files[i]) for i in got]
     cpu.close()
     card.close()
     with tempfile.TemporaryDirectory() as tmp:
         paths = _corrupt_copies(files[:6], tmp, (2, 4))  # 2 cut, 4 empty
         card = native_loader._Handle(paths, SIZE, 1, 8, 0, False,
                                      bytes_only=True)
-        payloads, got = card.next_bytes(5)
-        assert got.tolist() == [0, 1, 2, 3, 5] and len(payloads[2]) == 100
+        _, lengths, got = card.next_buffer(5)
+        assert got.tolist() == [0, 1, 2, 3, 5] and lengths[2] == 100
         assert card.dropped() >= 1  # the reader runs ahead, into pass 2
         card.close()
 
 
 def check_plain_resize_matches_core():
     """``jpeg_card.resize_bilinear_plain`` (the resize kernel's plain
-    version) on libjpeg's decode at the file's own size equals the core's
-    ``decode_files`` bit for bit at 134, 112 and 224 px, on the fixture's
-    files (a non-square one among them) and on a generator file; decoded
-    at its own side, the core gives libjpeg's pixels."""
+    version) on libjpeg's decode at the file's own size, in the decoded
+    batch's padded layout (offsets and row pitches multiples of 16 bytes,
+    ``jpeg_card.pack``), equals the core's ``decode_files`` bit for bit at
+    134, 112 and 224 px (a 160 → 224 upscale), on the fixture's files (a
+    161 x 127 one, whose 381-byte rows are no multiple of 16, among them),
+    on a generator file and on 2 x 2, 3 x 7 and 37 x 5 files; decoded at
+    its own side, the core gives libjpeg's pixels. An image with a side of
+    1, which the core's resize reads outside its rows for, gives zeros, as
+    the kernel does."""
     _, port, _ = _datasets()
     files = [str(path_o.FIXTURE / f) for f in path_o.FIXTURE_FILES]
     files.append(_jpegs(port)[0])
-    raws = [torch.from_numpy(native_loader.decode_rgb(Path(f).read_bytes()))
-            for f in files]
-    assert {tuple(r.shape[:2]) for r in raws} >= {(161, 127), (48, 48)}
-    square = [(f, r) for f, r in zip(files, raws) if r.shape[0] == r.shape[1]]
+    rng = np.random.default_rng(7)
+    with tempfile.TemporaryDirectory() as tmp:
+        for h, w in ((2, 2), (3, 7), (37, 5)):
+            files.append(os.path.join(tmp, f"{h}x{w}.jpg"))
+            native_loader.write_jpeg(files[-1], rng.integers(
+                0, 256, (h, w, 3), dtype=np.uint8))
+        raws = [torch.from_numpy(native_loader.decode_rgb(
+            Path(f).read_bytes())) for f in files]
+        want = {size: native_loader.decode_files(files, size, device="cpu")
+                for size in (134, 112, 224)}
+    assert {tuple(r.shape[:2]) for r in raws} >= {(161, 127), (48, 48),
+                                                  (3, 7), (37, 5)}
+    square = [(f, r) for f, r in zip(files, raws)
+              if r.shape[0] == r.shape[1] and r.shape[0] > 2]
     for f, r in square:
         np.testing.assert_array_equal(
             native_loader.decode_files([f], r.shape[0], device="cpu")[0], r)
     flat, offsets, hw = jpeg_card.pack(raws)
-    for size in (134, 112, 224):
+    assert flat.numel() % jpeg_card.ALIGN == 0
+    assert all(o % jpeg_card.ALIGN == 0 for o in offsets.tolist())
+    assert [jpeg_card.row_pitch(w) for w in (127, 7, 5, 160)] == [
+        384, 32, 16, 480]
+    for size, core in want.items():
         got = jpeg_card.resize_bilinear(flat, offsets, hw, size)  # the CPU:
-        np.testing.assert_array_equal(  # the plain version
-            got.numpy(), native_loader.decode_files(files, size, device="cpu"))
+        np.testing.assert_array_equal(got.numpy(), core)  # the plain version
+    thin = [torch.full((1, 9, 3), 200, dtype=torch.uint8),
+            torch.full((9, 1, 3), 200, dtype=torch.uint8), raws[0]]
+    got = jpeg_card.resize_bilinear(*jpeg_card.pack(thin), 134)
+    assert not got[:2].any()
+    np.testing.assert_array_equal(got[2].numpy(), want[134][0])
     assert jpeg_card.resize_bilinear.launches == 0
 
 

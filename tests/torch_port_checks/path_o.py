@@ -61,3 +61,36 @@ def config(root: str, save_dir: str = "", log_dir: str = "",
     train = {**CUTS, "SAVE_CP": save_dir, "LOG_DIR": log_dir,
              **sections.pop("TRAIN", {})}
     return path_c.train_config(base, DATA=data, TRAIN=train, **sections)
+
+
+def _segments(payload: bytes):
+    """``(marker, start)`` of each marker segment of a JPEG after its SOI,
+    up to and including its first SOS (``start`` at the segment's 0xFF)."""
+    out, i = [], 2
+    while i + 4 <= len(payload):
+        assert payload[i] == 0xFF, i
+        out.append((payload[i + 1], i))
+        if payload[i + 1] == 0xDA:
+            break
+        i += 2 + int.from_bytes(payload[i + 2:i + 4], "big")
+    return out
+
+
+def broken_jpegs(payload: bytes) -> dict:
+    """Copies of a baseline JPEG, each broken past the frame header that
+    nvJPEG's header parse (``nvjpegGetImageInfo``) reads:
+
+    - ``12_bit``: 12-bit samples in the frame header; nvJPEG's batched call
+      refuses the batch (not supported), and the decode decodes its
+      payloads again one at a time to find this one;
+    - ``no_scan``: cut before its scan; the decode's own header walk leaves
+      it out of the batch (bad JPEG);
+    - ``half``: its first half; nvJPEG decodes what is there (status 0),
+      as libjpeg does with a warning.
+    """
+    at = dict(_segments(payload))
+    sof, sos = at[0xC0], at[0xDA]
+    twelve = bytearray(payload)
+    twelve[sof + 4] = 12  # the sample precision
+    return {"12_bit": bytes(twelve), "no_scan": payload[:sos] + b"\xff\xd9",
+            "half": payload[:len(payload) // 2]}

@@ -1,6 +1,6 @@
 """Where a training step's time goes on the card: torch.profiler over full-width steps.
 
-    python tools/torch_port/profile_step.py [--path C|F|G] [--steps 5]
+    python tools/torch_port/profile_step.py [--path C|F|G|O] [--steps 5]
         [--out chiprun_out/profile]
 
 Builds one of ``chip_smoke.py``'s full-width training paths, with the
@@ -11,7 +11,13 @@ weights and uint8 batches of its default seed, on the card:
 - F: CoMatch, ``kaggle_semisupervised_real_1.yaml`` (ResNet-50 under
   ``ModelwEmb``, 112 px, 512 images a step);
 - G: SemiFormer in its FixMatch phase, ``kaggle_semisupervised_real_2.yaml``
-  (Conformer-Ti, 224 px, 416 images a step).
+  (Conformer-Ti, 224 px, 416 images a step);
+- O: the ``fit`` step of path O3, ``synthetic_tpu_e2e.yaml`` (FixMatch,
+  ResNet-50, 112 px, 480 images a step) on the JPEG files path O2's
+  generator writes (928 files at 160 px, made on the card), read by the
+  native loader and decoded on the card (``data/jpeg_card.py``): each
+  step takes its two batches from the loaders, as ``train_one`` does,
+  while their prefetch threads decode the next ones.
 
 After 3 warm-up steps it times ``--steps`` steps of ``_train_step`` (the
 views, the RandAugment kernel, forward+backward, optimizer+EMA) with CUDA
@@ -25,6 +31,14 @@ card. Under ``torchrun --standalone --nproc_per_node=1`` the step runs in
 a process group of one over NCCL (``parallel/mesh.py::init_from_env``):
 every collective of data parallelism is issued, and the table is written
 as ``path_<P>_group_ops.txt``.
+
+Path O times its steps with the host clock (two streams run: the step's
+and the decode's), and prints the device's busy time as the union of the
+intervals of every kernel and copy on any stream, the kernels with the
+most device time (nvJPEG's and the resize kernel among them), and the
+host's time a step: on the main thread in the step's enqueue and in the
+wait on the loaders, on the loaders' prefetch threads in their batches
+(wall and CPU time), and the whole process's CPU time.
 """
 
 from __future__ import annotations
@@ -44,7 +58,7 @@ from torch.autograd import DeviceType  # noqa: E402
 
 from endoscopy_tpu_torch.parallel import (in_group, init_from_env,  # noqa: E402
                                           leave_group)
-from torch_port_checks import path_c, path_f, path_g  # noqa: E402
+from torch_port_checks import path_c, path_f, path_g, path_o  # noqa: E402
 
 WARMUP = 3
 SEED = 0  # chip_smoke.py's default --seed
@@ -76,7 +90,7 @@ def build(path: str, seed: int = SEED):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--path", choices=("C", "F", "G"), default="G")
+    parser.add_argument("--path", choices=("C", "F", "G", "O"), default="G")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile"))
     args = parser.parse_args(argv)
@@ -89,7 +103,8 @@ def main(argv=None) -> int:
     print(card, flush=True)
     init_from_env()
     try:
-        return profile(args, card)
+        return profile_o(args, card) if args.path == "O" else profile(args,
+                                                                       card)
     finally:
         leave_group()
 
@@ -149,6 +164,138 @@ def profile(args, card: str) -> int:
      ).write_text(
         f"{card}\n" + events.table(sort_by="self_device_time_total",
                                     row_limit=200))
+    return 0
+
+
+def build_o(seed: int = SEED):
+    """(trainer, one ``fit`` step, the loaders' batch timings) for path O:
+    the generator's files made on the card, the trainer as ``run_config``
+    prepares it, each loader's prefetch thread timed in its batches."""
+    import shutil
+
+    from endoscopy_tpu_torch.cli import learn
+    from endoscopy_tpu_torch.data import native_loader
+    from endoscopy_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    root = ROOT / "build" / "profile_step" / "synth"
+    shutil.rmtree(root, ignore_errors=True)
+    make_synthetic_dataset(str(root), seed=seed, **path_o.GENERATOR)
+    batches = []  # (wall s, thread CPU s) of each prefetched batch
+    inner = native_loader._CardStream._batch
+
+    def timed_batch(self, *a, **kw):
+        t, c = time.perf_counter(), time.thread_time()
+        got = inner(self, *a, **kw)
+        batches.append((time.perf_counter() - t, time.thread_time() - c))
+        return got
+
+    native_loader._CardStream._batch = timed_batch
+    torch.manual_seed(seed)
+    trainer = learn.prepare_trainer(path_o.config(str(root)), device="cuda")
+    weights = trainer.class_weights
+    if weights is None:
+        weights = torch.ones(int(trainer.config.MODEL.NUM_CLASSES),
+                             device="cuda")
+    its = [iter(dl) for dl in trainer.train_dl]
+    pending, split = [], {"wait": 0.0, "enqueue": 0.0}
+
+    def step():  # FixMatch.train_one's loop body
+        t0 = time.perf_counter()
+        x, targets = next(its[0])
+        u, _ = next(its[1])
+        t1 = time.perf_counter()
+        loss, _ = trainer._train_step(x, targets, u, weights)
+        split["wait"] += t1 - t0
+        split["enqueue"] += time.perf_counter() - t1
+        pending.append(loss)
+        while len(pending) > 2:
+            pending.pop(0).detach().flatten().tolist()
+
+    def close():
+        for dl in (*trainer.train_dl, trainer.valid_dl):
+            dl.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    return step, batches, split, close
+
+
+def _union_ms(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals (µs), in ms."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def profile_o(args, card: str) -> int:
+    """Path O: time, then profile, ``args.steps`` ``fit`` steps on JPEG
+    files, the loaders running."""
+    step, batches, split, close = build_o()
+    try:
+        for _ in range(WARMUP):
+            step()
+        torch.cuda.synchronize()
+        n = args.steps
+        batches.clear()
+        split.update(wait=0.0, enqueue=0.0)
+        t0, c0 = time.perf_counter(), time.process_time()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        cpu_ms = (time.process_time() - c0) * 1e3 / n
+        loader_wall = sum(b[0] for b in batches) * 1e3 / n
+        loader_cpu = sum(b[1] for b in batches) * 1e3 / n
+        n_batches, timed = len(batches), dict(split)
+
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        close()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_ms = _union_ms((e.time_range.start, e.time_range.end)
+                        for e in device)
+    idle = (f"{1 - busy_ms / n / step_ms:.4f} of the unprofiled step, "
+            f"{1 - busy_ms / window_ms:.4f} of the profiled window" if device
+            else "not measured (no device events in the trace)")
+    print(f"path O: {n} fit steps after {WARMUP} warm-up steps: step "
+          f"{step_ms:.3f} ms (host clock, unprofiled); the main thread "
+          f"{timed['enqueue'] * 1e3 / n:.3f} ms a step in the step's enqueue "
+          f"and {timed['wait'] * 1e3 / n:.3f} ms waiting on the loaders; the "
+          f"loaders' prefetch threads {loader_wall:.3f} ms wall and "
+          f"{loader_cpu:.3f} ms CPU a step in {n_batches} batches; the "
+          f"process {cpu_ms:.3f} ms CPU a step; profiled window "
+          f"{window_ms / n:.3f} ms a step, device busy (union of kernels "
+          f"and copies on every stream) {busy_ms / n:.3f} ms a step, idle "
+          f"share {idle}", flush=True)
+    by_name = {}
+    for e in device:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           count + 1)
+    print("device kernels and copies by time a step (ms, share of busy, "
+          "calls a step):", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    for name, (ms, count) in top[:25]:
+        print(f"  {ms / n:9.3f}  {ms / busy_ms:6.3f}  {count / n:7.1f}  "
+              f"{name[:90]}", flush=True)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "path_O_ops.txt").write_text(
+        f"{card}\n" + prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=200))
     return 0
 
 
