@@ -375,6 +375,31 @@ F32_ATOL = 0.05  # probabilities, bf16 on the card vs float32 on the CPU
 # (the JAX package's bar, tests/test_serve.py), and the same argmax
 INT8_ATOL = 0.03
 
+
+class _Counter:
+    """A counter of the port's tracer (``utils/trace.py``), read from its
+    last ``zero()``."""
+
+    def __init__(self, name: str):
+        self.name, self._base = name, 0
+
+    def _now(self) -> int:
+        from endoscopy_tpu_torch.utils import trace
+        return trace.counter(self.name)
+
+    def zero(self) -> None:
+        self._base = self._now()
+
+    @property
+    def value(self) -> int:
+        return self._now() - self._base
+
+
+LAUNCHES = _Counter("randaugment/launches")
+RESIZES = _Counter("jpeg/resize_launches")
+DECODES = _Counter("jpeg/decode_calls")
+REDECODES = _Counter("jpeg/redecodes")
+
 IMG_C = path_c.REAL_3_1["DATA"]["IMG_SIZE"]  # path C's full-width side
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 3, 12
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
@@ -612,13 +637,13 @@ def phase_views(gen, seed: int):
         raise AssertionError("fixmatch_views made a reflect-padded batch")
 
     torch.cuda.synchronize()
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     t0 = time.perf_counter()
     with mock.patch.object(ops, "reflect_pad", no_pad):
         weak, strong = fixmatch_views(u8, IMG, torch.bfloat16, **draws)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = rk.randaugment_mc.launches
+    launches = LAUNCHES.value
     print(f"path B: fixmatch_views on {tuple(u8.shape)} uint8 -> weak/strong "
           f"{tuple(strong.shape)} {strong.dtype} in {first_s:.4f} s (first "
           f"call); randaugment_mc launches {launches}", flush=True)
@@ -694,7 +719,6 @@ def phase_serve(seed: int, out_dir: Path):
     """Path A: export, serve 64 concurrent raw requests, check them."""
     import torch
 
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
     from endoscopy_tpu_torch.serve.export import export_model, load_exported
     from endoscopy_tpu_torch.serve.server import ModelServer, make_server
 
@@ -705,7 +729,7 @@ def phase_serve(seed: int, out_dir: Path):
     imgs = np.random.default_rng(seed).integers(
         0, 256, (N_REQUESTS, size, size, 3)).astype(np.uint8)
 
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     server = make_server(path, host="127.0.0.1", port=0, device="cuda",
                          log=lambda m: print(f"path A {m}", flush=True))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -731,7 +755,7 @@ def phase_serve(seed: int, out_dir: Path):
         thread.join(timeout=60)
     if thread.is_alive():
         fail("server thread did not stop")
-    launches = rk.randaugment_mc.launches
+    launches = LAUNCHES.value
 
     probs = np.asarray(replies["probs"])
     lat = np.sort(replies["ms"])
@@ -1050,7 +1074,6 @@ def timed_train_one(trainer, config, seed: int, path: str, epoch: int = 0):
     bytes, launches)``."""
     import torch
 
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
     marks = []
     trainer.get_dataloader(step_loaders(config, seed, marks), None)
@@ -1064,14 +1087,14 @@ def timed_train_one(trainer, config, seed: int, path: str, epoch: int = 0):
     marks.clear()
     step0 = trainer.state.step
     torch.cuda.reset_peak_memory_stats()
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     t0 = time.perf_counter()
     meter = trainer.train_one(epoch + 1)
     end = torch.cuda.Event(enable_timing=True)
     end.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = rk.randaugment_mc.launches
+    launches = LAUNCHES.value
     peak = torch.cuda.max_memory_allocated()
     steps = trainer.state.step - step0
     step_ms = np.array([a.elapsed_time(z) for a, z in
@@ -1237,7 +1260,6 @@ def phase_train_accum(seed: int):
     update a step."""
     import torch
 
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
     from endoscopy_tpu_torch.train.fixmatch import FixMatch
 
     config = path_c.train_config(path_c.REAL_3_1, TRAIN={"GRAD_ACCUM": 2})
@@ -1246,12 +1268,12 @@ def phase_train_accum(seed: int):
     trainer.get_dataloader(step_loaders(config, seed, []), None)
     trainer.get_config(config, labeled_targets=path_c.labeled_targets(config, seed))
     config.TRAIN.EVAL_STEP = 3
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     t0 = time.perf_counter()
     meter = trainer.train_one(0)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = rk.randaugment_mc.launches
+    launches = LAUNCHES.value
     print(f"path C part 3: GRAD_ACCUM=2, 3 steps in {wall_s:.3f} s (first "
           f"calls included): step count {trainer.state.step}, randaugment_mc "
           f"launches {launches}, mean loss {meter.avg:.4f}", flush=True)
@@ -1266,7 +1288,6 @@ def phase_train_freeze(seed: int):
     moved."""
     import torch
 
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
     from endoscopy_tpu_torch.train.fixmatch import FixMatch
 
     config = path_c.train_config(path_c.REAL_3)
@@ -1277,7 +1298,7 @@ def phase_train_freeze(seed: int):
     config.TRAIN.EVAL_STEP = 2
     model = trainer.state.model
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     torch.cuda.reset_peak_memory_stats()
     meter = trainer.train_one(0)
     torch.cuda.synchronize()
@@ -1291,10 +1312,10 @@ def phase_train_freeze(seed: int):
           f"backbone parameters moved {len(frozen_moved)}; BN statistics and "
           f"head tensors that did not move {len(still)} (of {n_stats} BN "
           f"statistics and 2 head tensors); randaugment_mc launches "
-          f"{rk.randaugment_mc.launches}; peak memory "
+          f"{LAUNCHES.value}; peak memory "
           f"{torch.cuda.max_memory_allocated()} B; mean loss {meter.avg:.4f}",
           flush=True)
-    if frozen_moved or still or rk.randaugment_mc.launches != 2:
+    if frozen_moved or still or LAUNCHES.value != 2:
         fail(f"path C freeze: moved {frozen_moved[:4]}, still {still[:4]}")
 
 
@@ -1368,14 +1389,14 @@ def phase_learn(seed: int, out_dir: Path, made):
     # D1: run_config at full width
     epochs, steps = int(cfg1.TRAIN.EPOCHS), int(cfg1.TRAIN.EVAL_STEP)
     torch.cuda.reset_peak_memory_stats()
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     t0 = time.perf_counter()
     torch.manual_seed(seed)  # the model's own initialization, seeded
     with mock.patch.object(views, "randaugment_mc", recording):
         trainer1, _ = learn.run_config(cfg1, device="cuda", data=data1)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = rk.randaugment_mc.launches
+    launches = LAUNCHES.value
     peak = torch.cuda.max_memory_allocated()
     log = _log_records(log_dir)
     train = [r for r in log if "loss/train" in r]
@@ -1474,10 +1495,10 @@ def phase_learn(seed: int, out_dir: Path, made):
             or not same_eval):
         fail("path D2: the resumed trainer differs from the saved one")
     step0 = trainer2.state.step
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     trainer2.fit()
     torch.cuda.synchronize()
-    more = rk.randaugment_mc.launches
+    more = LAUNCHES.value
     saved = sorted(p.name for p in (out_dir / "ckpt" / "stage1").iterdir())
     print(f"path D2: fit to EPOCHS {epochs + 1} from the resume: "
           f"{trainer2.state.step - step0} steps, randaugment_mc launches "
@@ -1490,13 +1511,13 @@ def phase_learn(seed: int, out_dir: Path, made):
     cfg_final.TRAIN.EPOCHS = epochs + 1
     cfg_final.MODEL.PRE_TRAIN_RESUME = ckpt_io.latest_checkpoint(
         cfg1.TRAIN.SAVE_CP)
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     trainer_f, model = learn.run_config(cfg_final, device="cuda", data=data1)
     torch.cuda.synchronize()
     print(f"path D2: a resume at the final epoch: randaugment_mc launches "
-          f"{rk.randaugment_mc.launches}, step {trainer_f.state.step} "
+          f"{LAUNCHES.value}, step {trainer_f.state.step} "
           f"(restored {trainer2.state.step})", flush=True)
-    if rk.randaugment_mc.launches or trainer_f.state.step != trainer2.state.step:
+    if LAUNCHES.value or trainer_f.state.step != trainer2.state.step:
         fail("path D2: a resume at the final epoch trained")
 
     # D3: the 224 px stage on stage 1's final weights
@@ -1509,14 +1530,14 @@ def phase_learn(seed: int, out_dir: Path, made):
     ema_entry = [k for k, v in trainer3.state.ema.state_dict().items()
                  if not torch.equal(v, carried[k])]
     sides.clear()
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with mock.patch.object(views, "randaugment_mc", recording):
         trainer3.fit()
     torch.cuda.synchronize()
     fit2_s = time.perf_counter() - t0
-    launches2 = rk.randaugment_mc.launches
+    launches2 = LAUNCHES.value
     steps2 = int(cfg2.TRAIN.EVAL_STEP) * int(cfg2.TRAIN.EPOCHS)
     after = trainer3.state.model.state_dict()
     frozen_moved = [k for k, _ in trainer3.state.model.named_parameters()
@@ -2022,7 +2043,8 @@ def phase_jpeg_decode(out_dir: Path):
     want = np.load(fix / "expected.npz")
     side = path_o.FIXTURE_SIDE
     out = {"files": {}, "serve": {}}
-    jpeg_card.decode_raw.calls = jpeg_card.decode_raw.redecodes = 0
+    DECODES.zero()
+    REDECODES.zero()
     flat, offsets, hw, status = jpeg_card.decode_raw(
         [(fix / name).read_bytes() for name in path_o.FIXTURE_FILES])
     got = jpeg_card.resize_bilinear(flat, offsets, hw, side)
@@ -2101,8 +2123,7 @@ def phase_jpeg_decode(out_dir: Path):
         all_raised = str(exc)
     all_bad.close()
     shutil.rmtree(tmp, ignore_errors=True)
-    calls = {k: getattr(jpeg_card.decode_raw, k)
-             for k in ("calls", "redecodes")}
+    calls = {"calls": DECODES.value, "redecodes": REDECODES.value}
     out["corrupt"] = {"batch_rows": sorted(t.tolist()), "warnings": skipped,
                       "raised": raised, "all_corrupt": all_raised,
                       "decode_calls": calls}
@@ -2150,14 +2171,14 @@ def _broken_batches(whole: bytes) -> dict:
     clean = _decoded_images(*jpeg_card.decode_raw([whole] * 3)[:3])[0]
     out = {}
     for how, bad in path_o.broken_jpegs(whole).items():
-        before = jpeg_card.decode_raw.redecodes
+        before = REDECODES.value
         try:
             flat, offsets, hw, status = jpeg_card.decode_raw([whole, bad, whole])
         except RuntimeError as exc:
             fail(f"path O1: the batch with the {how} file raised: {exc}")
         got = _decoded_images(flat, offsets, hw)
         out[how] = {"status": list(status),
-                    "redecodes": jpeg_card.decode_raw.redecodes - before,
+                    "redecodes": REDECODES.value - before,
                     "whole_equal": all(got[i] is not None and
                                        torch.equal(got[i], clean)
                                        for i in (0, 2))}
@@ -2307,7 +2328,6 @@ def phase_jpeg_learn(seed: int, out_dir: Path, root: Path, c_step_ms: float,
 
     from endoscopy_tpu_torch.cli import learn
     from endoscopy_tpu_torch.data import jpeg_card, native_loader
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
     shutil.rmtree(out_dir / "ckpt", ignore_errors=True)
     shutil.rmtree(out_dir / "log", ignore_errors=True)
@@ -2325,9 +2345,10 @@ def phase_jpeg_learn(seed: int, out_dir: Path, root: Path, c_step_ms: float,
             yield item
 
     torch.manual_seed(seed)  # the model's own initialization, seeded
-    rk.randaugment_mc.launches = 0
-    jpeg_card.resize_bilinear.launches = 0
-    jpeg_card.decode_raw.calls = jpeg_card.decode_raw.redecodes = 0
+    LAUNCHES.zero()
+    RESIZES.zero()
+    DECODES.zero()
+    REDECODES.zero()
     t0 = time.perf_counter()
     with mock.patch.object(native_loader.NativeCanonicalLoader, "__iter__",
                            timed_iter):
@@ -2336,10 +2357,9 @@ def phase_jpeg_learn(seed: int, out_dir: Path, root: Path, c_step_ms: float,
     fit_s = time.perf_counter() - t0
     for dl in (*trainer.train_dl, trainer.valid_dl):
         dl.close()  # waits for the batches in flight
-    launches = rk.randaugment_mc.launches
-    resize_launches = jpeg_card.resize_bilinear.launches
-    decodes = {k: getattr(jpeg_card.decode_raw, k)
-               for k in ("calls", "redecodes")}
+    launches = LAUNCHES.value
+    resize_launches = RESIZES.value
+    decodes = {"calls": DECODES.value, "redecodes": REDECODES.value}
     log = _log_records(out_dir / "log")
     train = [r for r in log if "loss/train" in r]
     valid = [r for r in log if "loss/valid" in r]
@@ -2400,7 +2420,6 @@ def phase_preview(seed: int, out_dir: Path, root: Path):
     from endoscopy_tpu_torch.aug import views
     from endoscopy_tpu_torch.cli import learn
     from endoscopy_tpu_torch.eval import visualize
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
     out = {}
     for name, base in (("real_3_1", path_c.REAL_3_1),
@@ -2416,11 +2435,11 @@ def phase_preview(seed: int, out_dir: Path, root: Path):
             got.append(preview(*a, **k))
             return got[-1]
 
-        rk.randaugment_mc.launches = 0
+        LAUNCHES.zero()
         with mock.patch.object(visualize, "preview_views", recording):
             learn.prepare_trainer(cfg, device="cuda", data=data,
                                   preview=str(png))
-        launches = rk.randaugment_mc.launches
+        launches = LAUNCHES.value
         size = int(cfg.DATA.IMG_SIZE)
         lab, unl = data[0]
         g = torch.Generator(device="cuda").manual_seed(0)
@@ -2466,9 +2485,8 @@ def branch_step_matches_cpu(name: str, seed: int):
 def phase_branches(seed: int):
     """Path P: the supervised branches no preset reaches; no kernel runs
     on it."""
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     out = {"p1": {name: {s: branch_step_matches_cpu(name, s)
                          for s in range(seed, seed + P1_SEEDS[name])}
                   for name in path_p.BRANCHES}, "p2": {}}
@@ -2481,7 +2499,7 @@ def phase_branches(seed: int):
         with path_p.loss_branch(name):
             out["p2"][name] = supervised_timed(
                 cfg, seed, P2_TIMED_STEPS, f"path P2, {name}", warmup=1)
-    out["launches"] = rk.randaugment_mc.launches
+    out["launches"] = LAUNCHES.value
     print(f"path P: randaugment_mc launches {out['launches']} (no kernel on "
           "this path)", flush=True)
     if out["launches"]:
@@ -2495,10 +2513,9 @@ def phase_supervised(seed: int, out_dir: Path, data2):
 
     import torch
 
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     trainer, data, evals, marks, fit_s = supervised_fit(seed, out_dir, data2)
     peak = torch.cuda.max_memory_allocated()
     log = _log_records(out_dir / "log", "suplearning")
@@ -2544,7 +2561,7 @@ def phase_supervised(seed: int, out_dir: Path, data2):
     u8, t = next(iter(data[0]))
     w = trainer._epoch_weights(1)
     enqueue_ms = host_ms(lambda: trainer._train_step(u8, t, w), iters=5)
-    launches = rk.randaugment_mc.launches
+    launches = LAUNCHES.value
     print(f"path E1: evaluate_one on {len(data[1].manifest)} images "
           f"{eval_ms:.3f} ms (median of three, CUDA events); one step's host "
           f"enqueue {enqueue_ms:.3f} ms against its {med:.3f} ms on the card; "
@@ -2572,7 +2589,6 @@ def phase_serve_int8(seed: int, out_dir: Path):
     import os
 
     from endoscopy_tpu_torch.cli.infer import predict
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
     from endoscopy_tpu_torch.serve.export import export_model, load_exported
     from endoscopy_tpu_torch.serve.quantize import (quantize_state_dict,
                                                     quantized_fraction)
@@ -2585,7 +2601,7 @@ def phase_serve_int8(seed: int, out_dir: Path):
     frac = quantized_fraction(quantize_state_dict(model), model)
     imgs = np.random.default_rng(seed).integers(
         0, 256, (N_REQUESTS, size, size, 3)).astype(np.uint8)
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     f_full = load_exported(str(full), device="cuda")
     f_q = load_exported(str(path), device="cuda")
     p_full, p_q = f_full(imgs), f_q(imgs)
@@ -2630,9 +2646,9 @@ def phase_serve_int8(seed: int, out_dir: Path):
                                * (direct.max(1) > thres)))
     print(f"path A2: cli/infer.py's predict over {len(imgs)} images (batch "
           f"32), with and without --thres {thres:.4f}: equal to direct "
-          f"calls {same}; randaugment_mc launches {rk.randaugment_mc.launches}"
+          f"calls {same}; randaugment_mc launches {LAUNCHES.value}"
           f" (none expected)", flush=True)
-    if not same or rk.randaugment_mc.launches:
+    if not same or LAUNCHES.value:
         fail("path A2: cli/infer.py's predictions differ from the artifact's")
     return {"bytes_int8": sizes[0], "bytes_unquantized": sizes[1],
             "quantized_fraction": frac, "max_abs_err": err,
@@ -2898,7 +2914,6 @@ def comatch_learn(seed: int, out_dir: Path):
     import torch
 
     from endoscopy_tpu_torch.cli import learn
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
     shutil.rmtree(out_dir, ignore_errors=True)
     log_dir = out_dir / "log"
@@ -2907,13 +2922,13 @@ def comatch_learn(seed: int, out_dir: Path):
     data = path_d.synthetic_data(cfg1, path_f.F3_SIZES, seed + 2)
     gen_s = time.perf_counter() - t0
     epochs, steps = int(cfg1.TRAIN.EPOCHS), int(cfg1.TRAIN.EVAL_STEP)
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     torch.manual_seed(seed)  # the fresh weights, seeded
     t0 = time.perf_counter()
     trainer, _ = learn.run_config(cfg1, device="cuda", data=data)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = rk.randaugment_mc.launches
+    launches = LAUNCHES.value
     log = _log_records(log_dir, "comatch")
     train = [r for r in log if "loss/train" in r]
     valid = [r for r in log if "loss/valid" in r]
@@ -2940,13 +2955,13 @@ def comatch_learn(seed: int, out_dir: Path):
     # real_1_1: SGD, MU=7, 704 images a step, on the same images
     data[0][1].batch_size = int(cfg2.DATA.BATCH_SIZE) * int(cfg2.DATA.MU)
     steps2 = int(cfg2.TRAIN.EVAL_STEP) * int(cfg2.TRAIN.EPOCHS)
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     torch.manual_seed(seed)
     t0 = time.perf_counter()
     trainer2, _ = learn.run_config(cfg2, device="cuda", data=data)
     torch.cuda.synchronize()
     sgd_s = time.perf_counter() - t0
-    launches2 = rk.randaugment_mc.launches
+    launches2 = LAUNCHES.value
     train2 = [r for r in _log_records(log_dir, "comatch")
               if "loss/train" in r][len(train):]
     print(f"path F3: real_1_1 ({cfg2.TRAIN.OPT_NAME}, MU={cfg2.DATA.MU}, "
@@ -3227,14 +3242,13 @@ def semiformer_learn(seed: int, out_dir: Path, data2):
     from endoscopy_tpu_torch.ckpt import io as ckpt_io
     from endoscopy_tpu_torch.cli import learn
     from endoscopy_tpu_torch.models import build_model
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
     shutil.rmtree(out_dir, ignore_errors=True)
     log_dir = out_dir / "log"
     cfg_sup, cfg2, cfg21 = path_g.learn_configs(str(out_dir / "ckpt"),
                                                 str(log_dir))
     # the supervised Conformer (23 classes) on path D's stage-2 images
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     torch.manual_seed(seed)
     t0 = time.perf_counter()
     sup, _ = learn.run_config(cfg_sup, device="cuda",
@@ -3250,9 +3264,9 @@ def semiformer_learn(seed: int, out_dir: Path, data2):
           f"{sup_s:.2f} s: train loss {sup_log[0]['loss/train']:.4f}, step "
           f"ms (wall / steps) "
           f"{sup_log[0]['time/epoch_s'] * 1e3 / sup.n_iter_per_epoch:.3f}; "
-          f"randaugment_mc launches {rk.randaugment_mc.launches}; "
+          f"randaugment_mc launches {LAUNCHES.value}; "
           f"checkpoint {donor_dir.is_dir()}", flush=True)
-    if not donor_dir.is_dir() or rk.randaugment_mc.launches:
+    if not donor_dir.is_dir() or LAUNCHES.value:
         fail("path G3: the supervised Conformer left no checkpoint or "
              "launched the kernel")
 
@@ -3283,14 +3297,14 @@ def semiformer_learn(seed: int, out_dir: Path, data2):
     train_one = trainer.train_one
 
     def counted(epoch):
-        launches, step = rk.randaugment_mc.launches, trainer.state.step
+        launches, step = LAUNCHES.value, trainer.state.step
         meter = train_one(epoch)
-        per_epoch.append((rk.randaugment_mc.launches - launches,
+        per_epoch.append((LAUNCHES.value - launches,
                           trainer.state.step - step))
         return meter
 
     trainer.train_one = counted
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     t0 = time.perf_counter()
     trainer.fit()
     torch.cuda.synchronize()
@@ -3341,13 +3355,13 @@ def semiformer_learn(seed: int, out_dir: Path, data2):
     # real_2_1: 112 px, 312 images a step, in the FixMatch phase
     data21 = path_d.synthetic_data(cfg21, path_g.REAL_2_1_SIZES, seed + 3)
     steps21 = int(cfg21.TRAIN.EVAL_STEP) * int(cfg21.TRAIN.EPOCHS)
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     torch.manual_seed(seed)
     t0 = time.perf_counter()
     trainer21, _ = learn.run_config(cfg21, device="cuda", data=data21)
     torch.cuda.synchronize()
     s21 = time.perf_counter() - t0
-    launches21 = rk.randaugment_mc.launches
+    launches21 = LAUNCHES.value
     train21 = [r for r in _log_records(log_dir, "semiformer")
                if "loss/train" in r][len(train):]
     print(f"path G3: real_2_1 ({cfg21.DATA.IMG_SIZE} px, B="
@@ -3674,14 +3688,13 @@ def ezbm_capsule(seed: int, out_dir: Path, donor: str):
 
 def phase_ezbm(seed: int, out_dir: Path, data2, donor: str):
     """Path H: the EZBM trainer, H1-H3; no kernel runs on it."""
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     out = {"h1": {s: ezbm_step_matches_cpu(s)
                   for s in range(seed, seed + PART1_SEEDS)},
            "h2": ezbm_full(seed, data2),
            "h3": ezbm_capsule(seed, out_dir, donor)}
-    out["launches"] = rk.randaugment_mc.launches
+    out["launches"] = LAUNCHES.value
     print(f"path H: randaugment_mc launches {out['launches']} (no kernel on "
           "this path)", flush=True)
     if out["launches"]:
@@ -3780,9 +3793,8 @@ def supervised_timed(cfg, seed: int, steps: int, label: str,
 
 def phase_effnet(seed: int):
     """Path I: EfficientNet-B1, I1-I2; no kernel runs on it."""
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     out = {"i1": {s: effnet_step_matches_cpu(s)
                   for s in range(seed, seed + PART1_SEEDS)}}
     abnorm = path_c.train_config(path_i.ABNORM, TRAIN={"SAVE_CP": "",
@@ -3793,7 +3805,7 @@ def phase_effnet(seed: int):
                                                         "LOG_DIR": ""})
     out["i2_supervised"] = supervised_timed(sup, seed, 3,
                                             "path I2, kaggle_supervised")
-    out["launches"] = rk.randaugment_mc.launches
+    out["launches"] = LAUNCHES.value
     print(f"path I: randaugment_mc launches {out['launches']} (no kernel on "
           "this path)", flush=True)
     if out["launches"]:
@@ -3945,16 +3957,15 @@ def swin_step_matches_cpu(seed: int):
 def phase_swin(seed: int):
     """Path L: Swin-T in the supervised trainer, L1-L2; no kernel runs on
     it."""
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     out = {"l1": {s: swin_step_matches_cpu(s)
                   for s in range(seed, seed + PART1_SEEDS)}}
     cfg = path_c.train_config(path_l.PATHO_SWIN, TRAIN={"SAVE_CP": "",
                                                         "LOG_DIR": ""})
     out["l2"] = supervised_timed(cfg, seed, TRIPLET_TIMED_STEPS,
                                  "path L2, kaggle_supervised_patho on Swin-T")
-    out["launches"] = rk.randaugment_mc.launches
+    out["launches"] = LAUNCHES.value
     print(f"path L: randaugment_mc launches {out['launches']} (no kernel on "
           "this path)", flush=True)
     if out["launches"]:
@@ -4015,15 +4026,14 @@ def phase_zoo(seed: int, out_dir: Path):
     """Path M: every other new registry name; no kernel runs on it."""
     import torch
 
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     out = {}
     for name in path_l.M_NAMES:
         out[name] = zoo_model(name, seed, out_dir)
         torch.cuda.empty_cache()
-    out["launches"] = rk.randaugment_mc.launches
+    out["launches"] = LAUNCHES.value
     print(f"path M: randaugment_mc launches {out['launches']} (no kernel on "
           "this path)", flush=True)
     if out["launches"]:
@@ -4145,7 +4155,6 @@ def n2_learn(seed: int, out_dir: Path):
 
     from endoscopy_tpu_torch.ckpt import io as ckpt_io
     from endoscopy_tpu_torch.cli import learn
-    from endoscopy_tpu_torch.ops import randaugment_kernel as rk
 
     shutil.rmtree(out_dir, ignore_errors=True)
     cfg = path_c.train_config(path_c.REAL_3_1, TRAIN={
@@ -4159,14 +4168,14 @@ def n2_learn(seed: int, out_dir: Path):
                        Path(path).name))
         return replace(path, write)
 
-    rk.randaugment_mc.launches = 0
+    LAUNCHES.zero()
     torch.manual_seed(seed)  # the model's own initialization, seeded
     t0 = time.perf_counter()
     with mock.patch.object(ckpt_io, "_durable_replace", recording):
         trainer, _ = learn.run_config(cfg, device="cuda", data=data)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = rk.randaugment_mc.launches
+    launches = LAUNCHES.value
     steps = int(cfg.TRAIN.EPOCHS) * int(cfg.TRAIN.EVAL_STEP)
     saved = sorted(p.name for p in (out_dir / "ckpt").iterdir())
     resume = path_c.train_config(path_c.REAL_3_1, TRAIN={

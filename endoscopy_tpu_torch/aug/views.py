@@ -31,6 +31,7 @@ from endoscopy_tpu_torch.aug import ops
 from endoscopy_tpu_torch.aug.randaugment import sample_randaugment_params
 from endoscopy_tpu_torch.device import resolve_device
 from endoscopy_tpu_torch.ops.randaugment_kernel import randaugment_mc
+from endoscopy_tpu_torch.utils import trace
 
 # ImageNet statistics
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -45,11 +46,14 @@ def normalize(img: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 
 def _u8_on_device(batch_u8, device) -> torch.Tensor:
+    """The uint8 batch on ``device``; the host→device copy is the span
+    ``views/copy_in``."""
     x = torch.as_tensor(batch_u8)
     if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[3] != 3:
         raise ValueError(f"expected a uint8 (B, S, S, 3) batch, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    return x.to(resolve_device(device), non_blocking=True)
+    with trace.span("views/copy_in"):
+        return x.to(resolve_device(device), non_blocking=True)
 
 
 def _center(x: torch.Tensor, img_size: int) -> torch.Tensor:

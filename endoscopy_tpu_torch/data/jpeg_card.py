@@ -24,8 +24,9 @@ the decoded pixels are wanted on the card anyway, so there the route is:
   their order, so it gives the core's bytes exactly from the same decoded
   pixels. :func:`resize_bilinear_plain` is its plain PyTorch version: the CPU tests
   and ``chip_smoke.py`` hold the kernel against it, and nothing on the
-  card's path calls it. Each launch adds one to
-  ``resize_bilinear.launches``;
+  card's path calls it. Each launch adds one to the counter
+  ``jpeg/resize_launches`` and is the span ``jpeg/resize``
+  (``utils/trace.py``);
 - **encode**: :func:`write_jpeg`, nvJPEG's encoder at quality 92 with 4:2:0
   chroma, the JAX generator's settings, for ``data/synthetic.py``.
 
@@ -43,6 +44,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from endoscopy_tpu_torch.utils import trace
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels" / "jpeg_card"
@@ -200,13 +203,12 @@ def resize_bilinear(flat: torch.Tensor, offsets: torch.Tensor,
         return resize_bilinear_plain(flat, offsets, hw, size)
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
-    out = build().resize(flat, offsets.to(flat.device, torch.int64).contiguous(),
-                         hw.to(flat.device, torch.int32).contiguous(), int(size))
-    resize_bilinear.launches += 1
+    with trace.span("jpeg/resize"):
+        out = build().resize(
+            flat, offsets.to(flat.device, torch.int64).contiguous(),
+            hw.to(flat.device, torch.int32).contiguous(), int(size))
+    trace.count("jpeg/resize_launches")
     return out
-
-
-resize_bilinear.launches = 0
 
 
 # -- decode and encode --------------------------------------------------------
@@ -221,26 +223,26 @@ def decode_raw(payloads, device=None, lengths: Sequence[int] | None = None):
     payload whose header does not parse, or that has no scan, is left out
     of the call; if the
     call fails on its input, each of its payloads is decoded again alone on
-    the card to find which fail (counted in ``decode_raw.redecodes``).
-    Raises on a status that no input explains. ``decode_raw.calls`` counts
-    the calls."""
+    the card to find which fail. Raises on a status that no input
+    explains. The call is the span ``jpeg/decode``; the counters
+    ``jpeg/decode_calls``, ``jpeg/payloads`` and ``jpeg/redecodes`` count
+    the calls, their payloads and the payloads decoded again."""
     dev = _card(device)
-    if lengths is None:
-        lengths = [len(p) for p in payloads]
-        payloads = np.frombuffer(b"".join(payloads), np.uint8).copy()
-    data = torch.from_numpy(np.ascontiguousarray(payloads, np.uint8))
-    flat, offsets, hw, status, redecoded = build().decode(
-        data, [int(v) for v in lengths], dev.index)
-    decode_raw.calls += 1
-    decode_raw.redecodes += redecoded
+    with trace.span("jpeg/decode"):
+        if lengths is None:
+            lengths = [len(p) for p in payloads]
+            payloads = np.frombuffer(b"".join(payloads), np.uint8).copy()
+        data = torch.from_numpy(np.ascontiguousarray(payloads, np.uint8))
+        flat, offsets, hw, status, redecoded = build().decode(
+            data, [int(v) for v in lengths], dev.index)
+    trace.count("jpeg/decode_calls")
+    trace.count("jpeg/payloads", len(lengths))
+    trace.count("jpeg/redecodes", redecoded)
     wrong = {s for s in status if s and s not in BAD_INPUT}
     if wrong:
         raise RuntimeError(f"nvJPEG failed with status {sorted(wrong)}, which "
                            "no input file explains")
     return flat, offsets, hw, status
-
-
-decode_raw.calls = decode_raw.redecodes = 0
 
 
 def decode_bytes(payloads: Sequence[bytes], size: int, device=None,

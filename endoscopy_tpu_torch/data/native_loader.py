@@ -63,6 +63,7 @@ import torch
 
 from endoscopy_tpu_torch.data.manifest import Manifest
 from endoscopy_tpu_torch.device import resolve_device
+from endoscopy_tpu_torch.utils import trace
 
 SRC_PATH = Path(__file__).resolve().parent / "csrc" / "loader.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -296,7 +297,10 @@ class _CardStream:
     undecodable files skipped (the next files of the stream take
     their places, as the libjpeg core's workers skip them). Each batch is
     decoded on a CUDA stream of its own by a prefetch thread, one batch
-    ahead."""
+    ahead. Spans: ``jpeg/batch`` on the prefetch thread, with
+    ``jpeg/read`` (the core's bytes) and ``jpeg_card``'s ``jpeg/decode``
+    and ``jpeg/resize`` inside; ``loader/prefetch_wait`` on the caller's
+    thread, waiting for the batch."""
 
     def __init__(self, handle: "_Handle", n_paths: int, size: int,
                  device: torch.device) -> None:
@@ -313,32 +317,34 @@ class _CardStream:
     def _batch(self, n: int):
         from endoscopy_tpu_torch.data import jpeg_card
 
-        parts, indices = [], []
-        with torch.cuda.stream(self._stream):
-            while n:
-                dropped = self._handle.dropped()
-                buf, lengths, idx = self._handle.next_buffer(n)
-                if (idx < 0).any():  # a full pass read nothing
-                    return None
-                imgs, ok = jpeg_card.decode_some(buf, self._size,
-                                                 self._device, lengths)
-                self._streak += self._handle.dropped() - dropped
-                for k in ok:
-                    self._streak = 0 if k else self._streak + 1
-                if self._streak >= self._n_paths:
-                    return None
-                keep = [i for i, k in enumerate(ok) if k]
-                self._skipped += len(ok) - len(keep)
-                if len(keep) < len(ok):
-                    imgs = imgs[torch.tensor(keep, dtype=torch.long,
-                                             device=self._device)]
-                parts.append(imgs)
-                indices.append(idx[keep])
-                n -= len(keep)
-            out = parts[0] if len(parts) == 1 else torch.cat(parts)
-            done = torch.cuda.Event()
-            done.record(self._stream)
-        return out, np.concatenate(indices), done
+        with trace.span("jpeg/batch"):
+            parts, indices = [], []
+            with torch.cuda.stream(self._stream):
+                while n:
+                    dropped = self._handle.dropped()
+                    with trace.span("jpeg/read"):
+                        buf, lengths, idx = self._handle.next_buffer(n)
+                    if (idx < 0).any():  # a full pass read nothing
+                        return None
+                    imgs, ok = jpeg_card.decode_some(buf, self._size,
+                                                     self._device, lengths)
+                    self._streak += self._handle.dropped() - dropped
+                    for k in ok:
+                        self._streak = 0 if k else self._streak + 1
+                    if self._streak >= self._n_paths:
+                        return None
+                    keep = [i for i, k in enumerate(ok) if k]
+                    self._skipped += len(ok) - len(keep)
+                    if len(keep) < len(ok):
+                        imgs = imgs[torch.tensor(keep, dtype=torch.long,
+                                                 device=self._device)]
+                    parts.append(imgs)
+                    indices.append(idx[keep])
+                    n -= len(keep)
+                out = parts[0] if len(parts) == 1 else torch.cat(parts)
+                done = torch.cuda.Event()
+                done.record(self._stream)
+            return out, np.concatenate(indices), done
 
     def batches(self, n: int) -> Iterator:
         """``(imgs, indices)`` forever; None once a full pass decoded
@@ -348,7 +354,8 @@ class _CardStream:
         while True:
             if self._pending is None:
                 self._pending = self._pool.submit(self._batch, n)
-            got = self._pending.result()
+            with trace.span("loader/prefetch_wait"):
+                got = self._pending.result()
             if got is None:
                 yield None
                 return

@@ -9,7 +9,7 @@ into ``build/kernels/`` at the root of the checkout.
 :func:`randaugment_mc` is the one entry point. A tensor on the CPU goes to
 the plain PyTorch version (``aug/randaugment.py``); a CUDA tensor launches
 the kernel, or raises if it cannot be built or launched. Each launch adds
-one to ``randaugment_mc.launches``.
+one to the counter ``randaugment/launches`` (``utils/trace.py``).
 
 The kernel is bound by the card's memory rate: each image's window is read
 once and the output written once, with a few operations per pixel in
@@ -28,6 +28,7 @@ from pathlib import Path
 import torch
 
 from endoscopy_tpu_torch.aug.randaugment import randaugment_mc_plain
+from endoscopy_tpu_torch.utils import trace
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -115,8 +116,5 @@ def randaugment_mc(x: torch.Tensor, pi: torch.Tensor, pf: torch.Tensor,
     out = build().randaugment_mc(x, pi.to(x.device).contiguous(),
                                  pf.to(x.device).contiguous(), size,
                                  crop_size is not None, pad)
-    randaugment_mc.launches += 1
+    trace.count("randaugment/launches")
     return out
-
-
-randaugment_mc.launches = 0

@@ -58,6 +58,7 @@ from endoscopy_tpu_torch.parallel import (all_gather_rows, batch_mean,
 from endoscopy_tpu_torch.ssl_state.comatch_state import (CoMatchState,
                                                          comatch_state_init)
 from endoscopy_tpu_torch.train.common import BaseTrainer
+from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
 
@@ -115,15 +116,16 @@ class CoMatch(BaseTrainer):
     def _views(self, x_lb_u8, u_canon_u8):
         """(x_lb, u_weak, u_strong0, u_strong1) on the device, drawn from
         the trainer's generator for the global batch (this rank's rows in
-        a group)."""
+        a group); the span ``step/views``."""
         g, world = self.generator, self.group.world
-        x_lb = labeled_train_view(
-            x_lb_u8, self.img_size, self.dtype, device=self.device,
-            **self._rank_draws(labeled_draws(g, world * len(x_lb_u8))))
-        return (x_lb, *comatch_views(
-            u_canon_u8, self.img_size, self.dtype, device=self.device,
-            **self._rank_draws(comatch_draws(g, world * len(u_canon_u8),
-                                             self.img_size))))
+        with trace.span("step/views"):
+            x_lb = labeled_train_view(
+                x_lb_u8, self.img_size, self.dtype, device=self.device,
+                **self._rank_draws(labeled_draws(g, world * len(x_lb_u8))))
+            return (x_lb, *comatch_views(
+                u_canon_u8, self.img_size, self.dtype, device=self.device,
+                **self._rank_draws(comatch_draws(g, world * len(u_canon_u8),
+                                                 self.img_size))))
 
     @torch.no_grad()
     def _pseudo_and_state(self, logits_u_w, feats_u_w, feats_x, targets,
@@ -228,7 +230,7 @@ class CoMatch(BaseTrainer):
         logits, fts_low = self._forward(x, u_w, u_s0, u_s1)
         losses = self._losses(logits, fts_low, x.shape[0], targets, weights,
                               use_queue)
-        losses[0].backward()
+        self._backward(losses[0])
         return losses.detach()
 
     def _train_core(self, x, u_w, u_s0, u_s1, targets, weights,
@@ -252,21 +254,23 @@ class CoMatch(BaseTrainer):
         """``TRAIN.EVAL_STEP`` steps with the smoothing gate ``epoch > 0 or
         batch_idx > queue_batch``. The losses are fetched two steps late,
         so the host prepares the next step while the card runs."""
-        summary_loss = AverageMeter()
-        weights = self.class_weights
-        if weights is None:
-            weights = torch.ones(self.num_classes, device=self.device)
-        labeled_iter = iter(self.train_dl[0])
-        unlabeled_iter = iter(self.train_dl[1])
-        bs = int(self.config.DATA.BATCH_SIZE)
-        pending = []
-        for batch_idx in range(int(self.config.TRAIN.EVAL_STEP)):
-            x_lb, targets = next(labeled_iter)
-            u_canon, _ = next(unlabeled_iter)
-            use_queue = epoch > 0 or batch_idx > self.queue_batch
-            loss, _ = self._train_step(x_lb, targets, u_canon, weights,
-                                       use_queue)
-            pending.append(loss)
-            self._drain_pending(pending, summary_loss, bs)
-        self._drain_pending(pending, summary_loss, bs, keep=0)
+        with trace.epoch():
+            summary_loss = AverageMeter()
+            weights = self.class_weights
+            if weights is None:
+                weights = torch.ones(self.num_classes, device=self.device)
+            labeled_iter = iter(self.train_dl[0])
+            unlabeled_iter = iter(self.train_dl[1])
+            bs = int(self.config.DATA.BATCH_SIZE)
+            pending = []
+            for batch_idx in range(int(self.config.TRAIN.EVAL_STEP)):
+                x_lb, targets = self._next(labeled_iter)
+                u_canon, _ = self._next(unlabeled_iter)
+                use_queue = epoch > 0 or batch_idx > self.queue_batch
+                with trace.span("train/step"):
+                    loss, _ = self._train_step(x_lb, targets, u_canon,
+                                               weights, use_queue)
+                    pending.append(loss)
+                    self._drain_pending(pending, summary_loss, bs)
+            self._drain_pending(pending, summary_loss, bs, keep=0)
         return summary_loss

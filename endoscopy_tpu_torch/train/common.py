@@ -46,11 +46,18 @@ those of the 1-process step on that global batch:
 - every rank evaluates the whole validation set (as the JAX package's
   hosts do), rank 0 alone writes checkpoints and the metric log, and a
   preemption on any rank stops every rank at the same epoch boundary.
+
+Every trainer's ``train_one`` runs inside ``utils/trace.py``'s
+``epoch()`` and takes its batches through :meth:`BaseTrainer._next`
+(span ``loader/next``); each step, from the last batch's return to the
+end of its drain, is a ``train/step`` span, whose children are
+``step/views``, ``step/forward_backward`` (with ``step/backward``, the
+:meth:`BaseTrainer._backward` of the loss), ``step/update`` and
+``step/drain``. ``fit`` writes each epoch's record to the run log.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -73,7 +80,8 @@ from endoscopy_tpu_torch.parallel import (all_reduce_max, all_reduce_min,
 from endoscopy_tpu_torch.ssl_state.ema import ema_init, ema_update
 from endoscopy_tpu_torch.train import preempt
 from endoscopy_tpu_torch.train.state import TrainState
-from endoscopy_tpu_torch.utils.logging import MetricLogger, Throughput
+from endoscopy_tpu_torch.utils import trace
+from endoscopy_tpu_torch.utils.logging import MetricLogger
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
 
@@ -236,40 +244,60 @@ class BaseTrainer:
         one update on the mean gradient. Returns the mean of the detached
         statistics ``forward_backward`` returns. In a group the gradients
         and the statistics, the ranks' shares, are summed over ranks
-        first."""
+        first. Spans: ``step/forward_backward`` around each
+        ``forward_backward``, ``step/update`` around the rest (the views a
+        lazy ``micro`` computes between them are ``step/views``)."""
         st = self.state
-        st.model.train()
-        st.optimizer.zero_grad(set_to_none=True)
+        with trace.span("step/update"):
+            st.model.train()
+            st.optimizer.zero_grad(set_to_none=True)
         total, count = None, 0
         for m in micro:
-            stats = forward_backward(*m)
+            with trace.span("step/forward_backward"):
+                stats = forward_backward(*m)
             total = stats if total is None else total + stats
             count += 1
-        # a parameter outside the loss (ModelwEmb's projection in the
-        # triplet branch) gets a zero gradient, as under optax, so weight
-        # decay, momentum and Adam's moments still move it
-        for p in st.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        sync_grads(st.model)
-        total = all_reduce_sum(total)
-        if count > 1:
-            torch._foreach_div_([p.grad for p in st.model.parameters()],
-                                float(count))
-            total = total / count
-        self._apply_grads()
+        with trace.span("step/update"):
+            # a parameter outside the loss (ModelwEmb's projection in the
+            # triplet branch) gets a zero gradient, as under optax, so
+            # weight decay, momentum and Adam's moments still move it
+            for p in st.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            sync_grads(st.model)
+            total = all_reduce_sum(total)
+            if count > 1:
+                torch._foreach_div_([p.grad for p in st.model.parameters()],
+                                    float(count))
+                total = total / count
+            self._apply_grads()
         return total
+
+    @staticmethod
+    def _backward(loss: torch.Tensor) -> None:
+        """``loss.backward()``, timed as ``step/backward``."""
+        with trace.span("step/backward"):
+            loss.backward()
+
+    @staticmethod
+    def _next(it):
+        """The next batch of a train loader's iterator, timed as
+        ``loader/next``."""
+        with trace.span("loader/next"):
+            return next(it)
 
     @staticmethod
     def _drain_pending(pending: list, summary_loss, batch_size: int,
                        keep: int = 2) -> None:
         """Fetch all but the last ``keep`` deferred device losses into the
-        meter. Fetching step N-2's loss waits until it ran, so at most
-        about ``keep`` steps queue on the device while the host prepares
-        the next; ``keep=0`` drains everything (epoch end)."""
-        while len(pending) > keep:
-            for loss in pending.pop(0).detach().flatten().tolist():
-                summary_loss.update(float(loss), batch_size)
+        meter; ``keep=0`` drains everything (epoch end). A fetch copies the
+        loss on the current stream, behind every step queued there, so it
+        waits for the card to finish them all. Timed as ``step/drain``,
+        the epoch end's as ``train/drain``."""
+        with trace.span("step/drain" if keep else "train/drain"):
+            while len(pending) > keep:
+                for loss in pending.pop(0).detach().flatten().tolist():
+                    summary_loss.update(float(loss), batch_size)
 
     # -- evaluation ---------------------------------------------------------
 
@@ -320,9 +348,11 @@ class BaseTrainer:
 
     def evaluate_one(self, show_metric: bool = False,
                      show_report: bool = False):
-        """``(loss meter, metric dict)`` over the validation loader."""
+        """``(loss meter, metric dict)`` over the validation loader; the
+        pass is the span ``eval/pass``."""
         summary_loss = AverageMeter()
-        sums, probs, targets, keep = self._eval_pass(self.valid_dl)
+        with trace.span("eval/pass"):
+            sums, probs, targets, keep = self._eval_pass(self.valid_dl)
         for loss_sum, count in sums:
             n = int(count)
             if n:
@@ -368,8 +398,10 @@ class BaseTrainer:
                 "best_valid_perf": self.best_valid_perf,
                 "trainer": self.trainer_name,
                 "img_size": self.img_size}
-        path = ckpt_io.save_checkpoint(foldname, f"epoch_{int(self.epoch)}",
-                                       self.state.state_dict(), meta)
+        with trace.span("ckpt/save"):
+            path = ckpt_io.save_checkpoint(
+                foldname, f"epoch_{int(self.epoch)}", self.state.state_dict(),
+                meta)
         if self.group.rank == 0:
             print("Saved checkpoint:", path)
         return path
@@ -442,32 +474,38 @@ class BaseTrainer:
         print(f"\tMetric: {valid_metric}")
         return True
 
-    def _train_epoch(self, epoch: int, tput: Throughput,
-                     logger: MetricLogger) -> AverageMeter:
-        """``train_one(epoch)``, timed over the steps it takes (the
-        supervised trainer's ``n_iter_per_epoch``, else ``EVAL_STEP``);
-        logs the train loss, images/s and the epoch's seconds."""
+    def _train_epoch(self, epoch: int, logger: MetricLogger) -> AverageMeter:
+        """``train_one(epoch)``; logs the train loss, the epoch's seconds
+        (its ``train/epoch`` span), images/s over the steps it takes (the
+        supervised trainer's ``n_iter_per_epoch``, else ``EVAL_STEP``) and
+        the epoch's spans and counters a step (``trace.per_step``)."""
         self.epoch = epoch
-        tput.reset()
-        t0 = time.perf_counter()
-        train_loss = self.train_one(epoch)
-        epoch_s = time.perf_counter() - t0
-        tput.step(getattr(self, "n_iter_per_epoch",
-                          int(self.config.TRAIN.EVAL_STEP)))
-        imgs_per_sec = tput.images_per_sec
+        train_loss = self.train_one(epoch)  # runs inside trace.epoch()
+        record = trace.last_epoch()
+        epoch_s = record["spans"]["train/epoch"][0] / 1e9
+        steps = getattr(self, "n_iter_per_epoch",
+                        int(self.config.TRAIN.EVAL_STEP))
+        imgs_per_sec = steps * self._images_per_step() / max(epoch_s, 1e-9)
         print(f"\tTrain Loss: {train_loss.avg:.3f} | {imgs_per_sec:.0f} img/s")
         logger.log({"loss/train": train_loss.avg,
                     "throughput/images_per_sec": imgs_per_sec,
-                    "time/epoch_s": epoch_s}, epoch=epoch)
+                    "time/epoch_s": epoch_s, **trace.per_step(record)},
+                   epoch=epoch)
         return train_loss
 
     @staticmethod
     def _log_valid(logger: MetricLogger, epoch: int, valid_loss,
-                   valid_metric) -> None:
+                   valid_metric, record: dict) -> None:
+        """The evaluation's loss and macro-F1, and the seconds of the
+        ``eval/pass`` and ``ckpt/save`` spans in ``record`` (a
+        ``trace.since``)."""
         print(f"\tValid Loss: {valid_loss.avg:.3f}")
         print(f"\tMetric: { {k: v for k, v in valid_metric.items() if k != 'sen/spec'} }")
         logger.log({"loss/valid": valid_loss.avg,
-                    "metric/macro_f1": float(valid_metric["macro/f1"])},
+                    "metric/macro_f1": float(valid_metric["macro/f1"]),
+                    **{f"time/{name}_s": v[0] / 1e9
+                       for name, v in record["spans"].items()
+                       if name in ("eval/pass", "ckpt/save")}},
                    epoch=epoch)
 
     def fit(self) -> None:
@@ -477,14 +515,14 @@ class BaseTrainer:
         if self._evaluated_resume():
             return
         logger = self._metric_logger()
-        tput = Throughput(self._images_per_step())
         for epoch in range(self.epoch_start, int(self.config.TRAIN.EPOCHS) + 1):
             best = (f"{float(self.best_valid_perf):.3f}"
                     if self.best_valid_perf is not None else "inf")
             print(f"Training epoch: {epoch} | The best loss: {best}")
-            self._train_epoch(epoch, tput, logger)
+            self._train_epoch(epoch, logger)
             saved_this_epoch = False
             if epoch % int(self.config.TRAIN.FREQ_EVAL) == 0:
+                before = trace.totals()
                 valid_loss, valid_metric = self.evaluate_one()
                 if (self.best_valid_perf is None
                         or self.best_valid_perf > valid_loss.avg):
@@ -492,6 +530,7 @@ class BaseTrainer:
                 if self.config.TRAIN.get("SAVE_CP"):
                     self.save_checkpoint(self.config.TRAIN.SAVE_CP)
                     saved_this_epoch = True
-                self._log_valid(logger, epoch, valid_loss, valid_metric)
+                self._log_valid(logger, epoch, valid_loss, valid_metric,
+                                trace.since(before))
             if self._preempt_break(epoch, saved_this_epoch):
                 break

@@ -61,6 +61,7 @@ from endoscopy_tpu_torch.parallel import (all_gather_rows, all_reduce_sum,
 from endoscopy_tpu_torch.ssl_state.ema import ema_update
 from endoscopy_tpu_torch.train.common import BaseTrainer, sweep_steps
 from endoscopy_tpu_torch.train.supervised import TRIPLET_ALPHA, SupLearning
+from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
 
@@ -105,7 +106,7 @@ class EZBM(BaseTrainer):
                      reduction="mean", type_loss="poly",
                      cls_num_list=self.cls_num_list or None)
         loss = cl + self.lambda_c * tl
-        loss.backward()
+        self._backward(loss)
         self._anchor_fts = fts[:bs].detach()
         return loss.detach()[None]
 
@@ -119,37 +120,42 @@ class EZBM(BaseTrainer):
     def _stage1_step(self, x3_u8, targets, weights):
         """One stage-1 step from the canonical uint8 ``[A; P; N]`` batch
         (this rank's anchors, positives and negatives in the global one)."""
-        x = torch.as_tensor(x3_u8).to(self.device, non_blocking=True)
+        with trace.span("step/views"):
+            with trace.span("views/copy_in"):
+                x = torch.as_tensor(x3_u8).to(self.device, non_blocking=True)
+            n = self.group.world * x.shape[0]
+            draws = self._rank_draws(labeled_draws(self.generator, n),
+                                     *(n // 3,) * 3)
+            view = labeled_train_view(x, self.img_size, self.dtype,
+                                      device=self.device, **draws)
         t = torch.as_tensor(targets).to(self.device, torch.long,
                                         non_blocking=True)
-        n = self.group.world * x.shape[0]
-        draws = self._rank_draws(labeled_draws(self.generator, n),
-                                 *(n // 3,) * 3)
-        view = labeled_train_view(x, self.img_size, self.dtype,
-                                  device=self.device, **draws)
         return self._stage1_core(view, t, weights)
 
     def train_one_stage_1(self, epoch: int) -> AverageMeter:
         """``n_iter_per_epoch`` triplet steps; the memory is rebuilt from
         this epoch's anchors. The losses are fetched two steps late."""
-        summary_loss = AverageMeter()
-        weights = self.class_weights
-        if weights is None:
-            weights = torch.ones(int(self.config.MODEL.NUM_CLASSES),
-                                 device=self.device)
-        self.mem_features, self.mem_targets = [], []
-        it = iter(self.train_dl)
-        bs = int(self.config.DATA.BATCH_SIZE)
-        pending = []
-        for _ in range(self.n_iter_per_epoch):
-            batch_u8, targets = next(it)
-            x3 = self._build_triplet_batch(batch_u8, targets)
-            loss, anchor_fts = self._stage1_step(x3, targets, weights)
-            pending.append(loss)
-            self.mem_features.append(anchor_fts)
-            self.mem_targets.append(np.asarray(targets))
-            self._drain_pending(pending, summary_loss, bs)
-        self._drain_pending(pending, summary_loss, bs, keep=0)
+        with trace.epoch():
+            summary_loss = AverageMeter()
+            weights = self.class_weights
+            if weights is None:
+                weights = torch.ones(int(self.config.MODEL.NUM_CLASSES),
+                                     device=self.device)
+            self.mem_features, self.mem_targets = [], []
+            it = iter(self.train_dl)
+            bs = int(self.config.DATA.BATCH_SIZE)
+            pending = []
+            for _ in range(self.n_iter_per_epoch):
+                batch_u8, targets = self._next(it)
+                with trace.span("train/step"):
+                    x3 = self._build_triplet_batch(batch_u8, targets)
+                    loss, anchor_fts = self._stage1_step(x3, targets,
+                                                         weights)
+                    pending.append(loss)
+                    self.mem_features.append(anchor_fts)
+                    self.mem_targets.append(np.asarray(targets))
+                    self._drain_pending(pending, summary_loss, bs)
+            self._drain_pending(pending, summary_loss, bs, keep=0)
         if in_group():
             self._gather_memory()
         return summary_loss
@@ -231,20 +237,20 @@ class EZBM(BaseTrainer):
         l_s = (0.5 * ce_loss(out_s, targets, reduction="mean")
                + 0.5 * ce_loss(out_s, targets_dual, reduction="mean"))
         loss = l_o + self.lambda_c * l_s
-        loss.backward()
-        with torch.no_grad():
+        self._backward(loss)
+        with trace.span("step/update"), torch.no_grad():
             for name, p in model.named_parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 elif not name.startswith("fc."):
                     p.grad.zero_()
-        sync_grads(fc)
-        set_lr(self._opt2, self.lr_schedule(self._opt2_count))
-        self._opt2.step()
-        self._opt2_count += 1
-        st.step += 1
-        if st.ema is not None:
-            ema_update(st.ema, model, self.ema_decay)
+            sync_grads(fc)
+            set_lr(self._opt2, self.lr_schedule(self._opt2_count))
+            self._opt2.step()
+            self._opt2_count += 1
+            st.step += 1
+            if st.ema is not None:
+                ema_update(st.ema, model, self.ema_decay)
         return all_reduce_sum(loss.detach())
 
     def _new_stage2_optimizer(self) -> None:
@@ -270,17 +276,19 @@ class EZBM(BaseTrainer):
             return torch.as_tensor(a).to(self.device, dtype, non_blocking=True)
 
         pending = []
-        for _ in range(num_steps):
-            idx, dual = (self._own_rows(a) for a in
-                         self._sample_stage2_batch(targets, bs2, rng))
-            y, yd = targets[idx], targets[dual]
-            lam = self._stage2_lam(y, yd)
-            loss = self._stage2_core(feats[dev(idx)], dev(y),
-                                     feats[dev(dual)], dev(yd),
-                                     dev(lam, torch.float32))
-            pending.append(loss)
-            self._drain_pending(pending, summary_loss, bs2)
-        self._drain_pending(pending, summary_loss, bs2, keep=0)
+        with trace.epoch():
+            for _ in range(num_steps):
+                with trace.span("train/step"):
+                    idx, dual = (self._own_rows(a) for a in
+                                 self._sample_stage2_batch(targets, bs2, rng))
+                    y, yd = targets[idx], targets[dual]
+                    lam = self._stage2_lam(y, yd)
+                    loss = self._stage2_core(feats[dev(idx)], dev(y),
+                                             feats[dev(dual)], dev(yd),
+                                             dev(lam, torch.float32))
+                    pending.append(loss)
+                    self._drain_pending(pending, summary_loss, bs2)
+            self._drain_pending(pending, summary_loss, bs2, keep=0)
         return summary_loss
 
     # -- fit ------------------------------------------------------------------

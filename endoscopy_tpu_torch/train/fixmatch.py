@@ -31,6 +31,7 @@ from endoscopy_tpu_torch.aug.views import (fixmatch_draws, fixmatch_views,
                                            labeled_draws, labeled_train_view)
 from endoscopy_tpu_torch.losses import ce_loss, consistency_loss
 from endoscopy_tpu_torch.train.common import BaseTrainer, model_logits
+from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
 Micro = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -58,15 +59,16 @@ class FixMatch(BaseTrainer):
     def _views(self, x_lb_u8, u_canon_u8):
         """(x_lb, u_weak, u_strong) on the device, drawn from the
         trainer's generator for the global batch (this rank's rows in a
-        group)."""
+        group); the span ``step/views``."""
         g, world = self.generator, self.group.world
-        x_lb = labeled_train_view(
-            x_lb_u8, self.img_size, self.dtype, device=self.device,
-            **self._rank_draws(labeled_draws(g, world * len(x_lb_u8))))
-        u_weak, u_strong = fixmatch_views(
-            u_canon_u8, self.img_size, self.dtype, device=self.device,
-            **self._rank_draws(fixmatch_draws(g, world * len(u_canon_u8),
-                                              self.img_size)))
+        with trace.span("step/views"):
+            x_lb = labeled_train_view(
+                x_lb_u8, self.img_size, self.dtype, device=self.device,
+                **self._rank_draws(labeled_draws(g, world * len(x_lb_u8))))
+            u_weak, u_strong = fixmatch_views(
+                u_canon_u8, self.img_size, self.dtype, device=self.device,
+                **self._rank_draws(fixmatch_draws(g, world * len(u_canon_u8),
+                                                  self.img_size)))
         return x_lb, u_weak, u_strong
 
     def _forward_backward(self, x_lb, u_weak, u_strong, targets,
@@ -88,7 +90,7 @@ class FixMatch(BaseTrainer):
                                          logits[bs_lb + btu:], T=self.T,
                                          p_cutoff=self.thres)
         loss = lx + self.lambda_u * lu
-        loss.backward()
+        self._backward(loss)
         return torch.stack([loss, lx, lu, mask_mean]).detach()
 
     def _train_micro(self, micro: Iterable[Micro], weights):
@@ -127,20 +129,23 @@ class FixMatch(BaseTrainer):
     def train_one(self, epoch: int) -> AverageMeter:
         """``TRAIN.EVAL_STEP`` steps. The losses are fetched two steps
         late, so the host prepares the next step while the card runs."""
-        summary_loss = AverageMeter()
-        weights = self.class_weights
-        if weights is None:
-            weights = torch.ones(int(self.config.MODEL.NUM_CLASSES),
-                                 device=self.device)
-        labeled_iter = iter(self.train_dl[0])
-        unlabeled_iter = iter(self.train_dl[1])
-        bs = int(self.config.DATA.BATCH_SIZE)
-        pending = []
-        for _ in range(int(self.config.TRAIN.EVAL_STEP)):
-            x_lb, targets = next(labeled_iter)
-            u_canon, _ = next(unlabeled_iter)
-            loss, _ = self._train_step(x_lb, targets, u_canon, weights)
-            pending.append(loss)
-            self._drain_pending(pending, summary_loss, bs)
-        self._drain_pending(pending, summary_loss, bs, keep=0)
+        with trace.epoch():
+            summary_loss = AverageMeter()
+            weights = self.class_weights
+            if weights is None:
+                weights = torch.ones(int(self.config.MODEL.NUM_CLASSES),
+                                     device=self.device)
+            labeled_iter = iter(self.train_dl[0])
+            unlabeled_iter = iter(self.train_dl[1])
+            bs = int(self.config.DATA.BATCH_SIZE)
+            pending = []
+            for _ in range(int(self.config.TRAIN.EVAL_STEP)):
+                x_lb, targets = self._next(labeled_iter)
+                u_canon, _ = self._next(unlabeled_iter)
+                with trace.span("train/step"):
+                    loss, _ = self._train_step(x_lb, targets, u_canon,
+                                               weights)
+                    pending.append(loss)
+                    self._drain_pending(pending, summary_loss, bs)
+            self._drain_pending(pending, summary_loss, bs, keep=0)
         return summary_loss

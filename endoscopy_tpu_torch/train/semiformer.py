@@ -40,6 +40,7 @@ from endoscopy_tpu_torch.aug.views import labeled_draws, labeled_train_view
 from endoscopy_tpu_torch.losses import ce_loss, consistency_loss, cross_entropy
 from endoscopy_tpu_torch.train.common import sweep_steps
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
+from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
 
@@ -74,7 +75,7 @@ class SemiFormer(FixMatch):
 
     def _warmup_forward_backward(self, x, targets, weights) -> torch.Tensor:
         loss = self._lx(*self._heads(x), targets, weights)
-        loss.backward()
+        self._backward(loss)
         return loss.detach()[None]
 
     def _warmup_core(self, x, targets, weights) -> torch.Tensor:
@@ -84,10 +85,12 @@ class SemiFormer(FixMatch):
 
     def _warmup_step(self, x_lb_u8, targets, weights) -> torch.Tensor:
         """One warmup step from the canonical uint8 batch."""
-        draws = labeled_draws(self.generator,
-                              self.group.world * len(x_lb_u8))
-        x = labeled_train_view(x_lb_u8, self.img_size, self.dtype,
-                               device=self.device, **self._rank_draws(draws))
+        with trace.span("step/views"):
+            draws = labeled_draws(self.generator,
+                                  self.group.world * len(x_lb_u8))
+            x = labeled_train_view(x_lb_u8, self.img_size, self.dtype,
+                                   device=self.device,
+                                   **self._rank_draws(draws))
         t = torch.as_tensor(targets).to(self.device, torch.long,
                                         non_blocking=True)
         return self._warmup_core(x, t, weights)
@@ -106,7 +109,7 @@ class SemiFormer(FixMatch):
             conv_weak, trans[bs_lb + btu:], T=self.T, p_cutoff=self.thres)
         lu = lu_conv + lu_trans
         loss = lx + self.lambda_u * lu
-        loss.backward()
+        self._backward(loss)
         return torch.stack([loss, lx, lu, mask_mean]).detach()
 
     @staticmethod
@@ -121,20 +124,22 @@ class SemiFormer(FixMatch):
         """A warmup sweep of the labeled set before ``EVAL_STEP_SUP``, else
         ``EVAL_STEP`` FixMatch-phase steps; the losses are fetched two
         steps late."""
-        if epoch >= self.eval_step_sup:
-            return super().train_one(epoch)
-        summary_loss = AverageMeter()
-        weights = self.class_weights
-        if weights is None:
-            weights = torch.ones(int(self.config.MODEL.NUM_CLASSES),
-                                 device=self.device)
-        labeled = self.train_dl[0]
-        bs = int(self.config.DATA.BATCH_SIZE)
-        it = iter(labeled)
-        pending = []
-        for _ in range(sweep_steps(labeled, bs, self.device)):
-            x_lb, targets = next(it)
-            pending.append(self._warmup_step(x_lb, targets, weights))
-            self._drain_pending(pending, summary_loss, bs)
-        self._drain_pending(pending, summary_loss, bs, keep=0)
+        with trace.epoch():
+            if epoch >= self.eval_step_sup:
+                return super().train_one(epoch)
+            summary_loss = AverageMeter()
+            weights = self.class_weights
+            if weights is None:
+                weights = torch.ones(int(self.config.MODEL.NUM_CLASSES),
+                                     device=self.device)
+            labeled = self.train_dl[0]
+            bs = int(self.config.DATA.BATCH_SIZE)
+            it = iter(labeled)
+            pending = []
+            for _ in range(sweep_steps(labeled, bs, self.device)):
+                x_lb, targets = self._next(it)
+                with trace.span("train/step"):
+                    pending.append(self._warmup_step(x_lb, targets, weights))
+                    self._drain_pending(pending, summary_loss, bs)
+            self._drain_pending(pending, summary_loss, bs, keep=0)
         return summary_loss

@@ -57,7 +57,7 @@ from endoscopy_tpu_torch.losses import (angular_penalty_loss, ce_loss,
 from endoscopy_tpu_torch.parallel import batch_mean
 from endoscopy_tpu_torch.train.common import (BaseTrainer, model_logits,
                                               sweep_steps)
-from endoscopy_tpu_torch.utils.logging import Throughput
+from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
 TRIPLET_ALPHA = 0.7
@@ -129,7 +129,7 @@ class SupLearning(BaseTrainer):
                 loss = ce_loss(logits, targets, class_weights=weights,
                                reduction="mean")
             stats = [loss]
-        loss.backward()
+        self._backward(loss)
         return torch.stack(stats).detach()
 
     def _margin_forward_backward(self, x, targets, weights) -> torch.Tensor:
@@ -144,7 +144,7 @@ class SupLearning(BaseTrainer):
                                     model.head.fc.weight.float(),
                                     loss_type=self.margin,
                                     cls_weight=weights)
-        loss.backward()
+        self._backward(loss)
         return loss.detach()[None]
 
     def _train_micro(self, micro, weights):
@@ -175,9 +175,11 @@ class SupLearning(BaseTrainer):
         triplet branch, ``targets`` the anchors'), in ``grad_accum``
         microbatches, each with its own view, drawn for the microbatch's
         global rows (this rank's: its anchors, positives and negatives in
-        the global ``[A; P; N]``)."""
+        the global ``[A; P; N]``); the copy of the batch and the views are
+        the span ``step/views``."""
         accum = self.grad_accum
-        x = torch.as_tensor(batch_u8).to(self.device, non_blocking=True)
+        with trace.span("step/views"), trace.span("views/copy_in"):
+            x = torch.as_tensor(batch_u8).to(self.device, non_blocking=True)
         t = torch.as_tensor(targets).to(self.device, torch.long,
                                         non_blocking=True)
         if t.shape[0] % accum:
@@ -194,10 +196,12 @@ class SupLearning(BaseTrainer):
             for i, t_m in enumerate(t.chunk(accum)):
                 x_m = x if accum == 1 else x[rows[i].to(x.device)]
                 n = world * len(x_m)
-                draws = self._rank_draws(draw(self.generator, n),
-                                         *(n // blocks,) * blocks)
-                yield (view(x_m, self.img_size, self.dtype,
-                            device=self.device, **draws), t_m)
+                with trace.span("step/views"):
+                    draws = self._rank_draws(draw(self.generator, n),
+                                             *(n // blocks,) * blocks)
+                    x_v = view(x_m, self.img_size, self.dtype,
+                               device=self.device, **draws)
+                yield x_v, t_m
 
         return self._train_micro(micro(), weights)
 
@@ -241,19 +245,22 @@ class SupLearning(BaseTrainer):
     def train_one(self, epoch: int) -> AverageMeter:
         """``n_iter_per_epoch`` steps; the losses are fetched two steps
         late, the triplet distances once at the end."""
-        summary_loss = AverageMeter()
-        weights = self._epoch_weights(epoch)
-        it = iter(self.train_dl)
-        bs = int(self.config.DATA.BATCH_SIZE)
-        pending, aux = [], ()
-        for _ in range(self.n_iter_per_epoch):
-            batch_u8, targets = next(it)
-            if self.is_triplet:
-                batch_u8 = self._build_triplet_batch(batch_u8, targets)
-            loss, aux = self._train_step(batch_u8, targets, weights)
-            pending.append(loss)
-            self._drain_pending(pending, summary_loss, bs)
-        self._drain_pending(pending, summary_loss, bs, keep=0)
+        with trace.epoch():
+            summary_loss = AverageMeter()
+            weights = self._epoch_weights(epoch)
+            it = iter(self.train_dl)
+            bs = int(self.config.DATA.BATCH_SIZE)
+            pending, aux = [], ()
+            for _ in range(self.n_iter_per_epoch):
+                batch_u8, targets = self._next(it)
+                with trace.span("train/step"):
+                    if self.is_triplet:
+                        batch_u8 = self._build_triplet_batch(batch_u8,
+                                                             targets)
+                    loss, aux = self._train_step(batch_u8, targets, weights)
+                    pending.append(loss)
+                    self._drain_pending(pending, summary_loss, bs)
+            self._drain_pending(pending, summary_loss, bs, keep=0)
         if self.is_triplet and aux:
             self._last_triplet_dist = tuple(float(a) for a in aux)
             if epoch % 5 == 0:
@@ -286,7 +293,6 @@ class SupLearning(BaseTrainer):
         if self._evaluated_resume():
             return
         logger = self._metric_logger()
-        tput = Throughput(self._images_per_step())
         count_early_stop = 0
         self.best_valid_loss = self.best_valid_score = None
         for epoch in range(self.epoch_start, int(self.config.TRAIN.EPOCHS) + 1):
@@ -294,9 +300,10 @@ class SupLearning(BaseTrainer):
                 print("Early stopping")
                 break
             print(f"Training epoch: {epoch}")
-            self._train_epoch(epoch, tput, logger)
+            self._train_epoch(epoch, logger)
             saved_this_epoch = False
             if epoch % int(self.config.TRAIN.FREQ_EVAL) == 0:
+                before = trace.totals()
                 valid_loss, valid_metric = self.evaluate_one()
                 loss, f1 = valid_loss.avg, float(valid_metric["macro/f1"])
                 improved = (self.best_valid_loss is None
@@ -309,6 +316,7 @@ class SupLearning(BaseTrainer):
                         saved_this_epoch = True
                 elif self.best_valid_loss < loss or self.best_valid_score > f1:
                     count_early_stop += 1
-                self._log_valid(logger, epoch, valid_loss, valid_metric)
+                self._log_valid(logger, epoch, valid_loss, valid_metric,
+                                trace.since(before))
             if self._preempt_break(epoch, saved_this_epoch):
                 break

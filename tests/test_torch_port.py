@@ -34,7 +34,9 @@ bit for bit against the JAX package's, and ``cli/learn.py`` with
 JPEG route's bytes-only core, the resize kernel's plain version and the
 JPEG fixture), ``offline`` (the offline tools, ``preprocess``,
 ``split_data`` and ``eda``, and ``eval/visualize.py`` with the previews
-and the CLIs' PNGs, against the JAX package's). This
+and the CLIs' PNGs, against the JAX package's), ``trace`` (the port's
+spans and counters: self time, threads, epoch records, the profiler's
+annotations, a FixMatch epoch's spans in the run log). This
 one test runs every case and reports every failure with its traceback. It
 is one test item so that the counts of the JAX suite that ``PARITY.md``
 documents, and ``tests/test_parity_doc.py`` checks within 2, stay the JAX
@@ -47,10 +49,11 @@ import torch
 
 from torch_port_checks import (comatch, ezbm, learn, models, native, nojax,
                                offline, parallel, randaugment, semiformer,
-                               serve, supervised, train, views, zoo)
+                               serve, supervised, trace, train, views, zoo)
 
 MODULES = (models, randaugment, views, serve, train, learn, supervised,
-           comatch, semiformer, ezbm, zoo, parallel, native, offline, nojax)
+           comatch, semiformer, ezbm, zoo, parallel, native, offline, trace,
+           nojax)
 
 
 def _cases():

@@ -16,6 +16,7 @@ from endoscopy_tpu_torch.aug import ops
 from endoscopy_tpu_torch.aug import randaugment as tra
 from endoscopy_tpu_torch.data import jpeg_card
 from endoscopy_tpu_torch.ops import randaugment_kernel as tk
+from endoscopy_tpu_torch.utils import trace
 from torch_port_checks import path_o
 
 torch.set_num_threads(1)
@@ -85,10 +86,10 @@ def _forced_case(side, mode, dtype, seed=0):
 
 def _forced_ops_match_plain(side, mode, dtype):
     x, pi, pf, crop, pad = _forced_case(side, mode, dtype)
-    before = tk.randaugment_mc.launches
+    before = trace.counter("randaugment/launches")
     got = tk.randaugment_mc(x, pi, pf, crop, pad)
     torch.cuda.synchronize()
-    assert tk.randaugment_mc.launches == before + 1
+    assert trace.counter("randaugment/launches") == before + 1
     assert got.shape == (x.shape[0], side, side, 3) and got.dtype == dtype
     ref = tra.randaugment_mc_plain(x, pi, pf, crop, pad)
     bad = (got != ref).flatten(1).any(1).nonzero().flatten().tolist()
@@ -152,9 +153,9 @@ def _resnet_tiny_step_matches_cpu():
     torch.backends.cudnn.allow_tf32 = False
     try:
         ref, ref_upd = cs.step_once(cfg, model, batch, "cpu", 0)
-        before = tk.randaugment_mc.launches
+        before = trace.counter("randaugment/launches")
         got, upd = cs.step_once(cfg, model, batch, "cuda", 0)
-        assert tk.randaugment_mc.launches == before + 1
+        assert trace.counter("randaugment/launches") == before + 1
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
@@ -223,10 +224,10 @@ def _resize_kernel_matches_plain():
     cases += [(batch, 134), (batch, 112)]
     for images, size in cases:
         flat, offsets, hw = jpeg_card.pack([im.cuda() for im in images])
-        before = jpeg_card.resize_bilinear.launches
+        before = trace.counter("jpeg/resize_launches")
         got = jpeg_card.resize_bilinear(flat, offsets, hw, size)
         torch.cuda.synchronize()
-        assert jpeg_card.resize_bilinear.launches == before + 1
+        assert trace.counter("jpeg/resize_launches") == before + 1
         ref = jpeg_card.resize_bilinear_plain(flat, offsets, hw, size)
         bad = (got != ref).flatten(1).any(1).nonzero().flatten().tolist()
         assert not bad, (size, [tuple(images[i].shape) for i in bad[:4]])
@@ -258,9 +259,9 @@ def _broken_file_in_a_batch():
         for how, redecodes in (("12_bit", n), ("no_scan", 0)):
             payloads = [whole] * n
             payloads[1] = path_o.broken_jpegs(whole)[how]
-            before = jpeg_card.decode_raw.redecodes
+            before = trace.counter("jpeg/redecodes")
             flat, offsets, hw, status = jpeg_card.decode_raw(payloads)
-            assert jpeg_card.decode_raw.redecodes - before == redecodes, how
+            assert trace.counter("jpeg/redecodes") - before == redecodes, how
             assert status[1] in jpeg_card.BAD_INPUT, (how, status[1])
             assert not any(status[:1] + status[2:]), how
             assert hw[1].tolist() == [0, 0], how

@@ -69,6 +69,7 @@ from endoscopy_tpu_torch.models import build_model
 from endoscopy_tpu_torch.models.heads import KEEP
 from endoscopy_tpu_torch.train import ezbm
 from endoscopy_tpu_torch.train.ezbm import EZBM
+from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 from torch_port_checks import path_e, path_h, path_i, path_j
 from torch_port_checks.learn import _donor, _no_counts
@@ -363,10 +364,11 @@ def _scripted_fit(trainer, meter, cfg, events):
 
     def train(s):
         def one(epoch):
-            stage[0] = s
-            events.append((f"train{s}", epoch))
-            m = meter()
-            m.update(1.0, 4)
+            with trace.epoch():  # as every trainer's train_one
+                stage[0] = s
+                events.append((f"train{s}", epoch))
+                m = meter()
+                m.update(1.0, 4)
             return m
         return one
 

@@ -64,6 +64,7 @@ from endoscopy_tpu_torch.eval import metrics
 from endoscopy_tpu_torch.models import build_model
 from endoscopy_tpu_torch.train import preempt
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
+from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 from torch_port_checks import path_d
 from torch_port_checks.train import (B, CANON, IMG, NUM_CLASSES, OVERRIDES,
@@ -549,11 +550,12 @@ class _Recorder:
         trainer.save_checkpoint = save_checkpoint
 
     def train_one(self, epoch):
-        self.events.append(("train", epoch))
-        if epoch == self.preempt_at:
-            self.request()
-        m = self.meter()
-        m.update(1.0 / epoch, 4)
+        with trace.epoch():  # as every trainer's train_one
+            self.events.append(("train", epoch))
+            if epoch == self.preempt_at:
+                self.request()
+            m = self.meter()
+            m.update(1.0 / epoch, 4)
         return m
 
     def evaluate_one(self):

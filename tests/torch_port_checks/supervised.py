@@ -89,6 +89,7 @@ from endoscopy_tpu_torch.serve import export
 from endoscopy_tpu_torch.train import supervised as supervised_mod
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
 from endoscopy_tpu_torch.train.supervised import SupLearning
+from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 from torch_port_checks import path_e
 from torch_port_checks.learn import (_data_overrides, _dataset,
@@ -698,9 +699,10 @@ def _scripted_fit(trainer, meter, cfg, epochs, freq, resumed):
     events = []
 
     def train_one(epoch):
-        events.append(("train", epoch))
-        m = meter()
-        m.update(1.0 / epoch, 4)
+        with trace.epoch():  # as every trainer's train_one
+            events.append(("train", epoch))
+            m = meter()
+            m.update(1.0 / epoch, 4)
         return m
 
     def evaluate_one():

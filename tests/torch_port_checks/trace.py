@@ -1,0 +1,169 @@
+"""The port's tracer (``endoscopy_tpu_torch/utils/trace.py``): self time
+under nesting, the threads' totals, the epoch records, the profiler's
+annotations, and the spans of a tiny FixMatch epoch and its run log."""
+
+import json
+import sys
+import tempfile
+import threading
+import time
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from endoscopy_tpu_torch.config.loader import default_config
+from endoscopy_tpu_torch.models import build_model
+from endoscopy_tpu_torch.train.fixmatch import FixMatch
+from endoscopy_tpu_torch.utils import trace
+from endoscopy_tpu_torch.utils.logging import MetricLogger
+
+
+def check_self_time_is_the_span_less_its_children():
+    clock = iter([0, 10, 40, 45, 65, 100])
+    before = trace.totals()
+    with mock.patch.object(trace, "perf_counter_ns", lambda: next(clock)):
+        with trace.span("t1/outer"):
+            with trace.span("t1/inner"):
+                pass
+            with trace.span("t1/inner"):
+                pass
+    got = trace.since(before)["spans"]
+    assert got["t1/outer"] == (100, 100 - 30 - 20, 1)
+    assert got["t1/inner"] == (50, 50, 2)
+
+
+def check_threads_keep_their_own_stacks_and_their_totals_add():
+    """Worker threads count and time spans while this thread reads the
+    totals, with the interpreter switching threads often: no update is
+    lost, and no thread's span nests under another's."""
+    workers, rounds = 8, 500
+    before = trace.totals()
+
+    def worker():
+        for _ in range(rounds):
+            with trace.span("t2/worker"):
+                trace.count("t2/items")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with trace.span("t2/main"):
+            threads = [threading.Thread(target=worker)
+                       for _ in range(workers)]
+            for t in threads:
+                t.start()
+            while any(t.is_alive() for t in threads):
+                trace.totals()  # reads while the workers write
+                time.sleep(0.001)
+            for t in threads:
+                t.join(timeout=60)
+            trace.count("t2/items", 5)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    got = trace.since(before)
+    main_total, main_self, _ = got["spans"]["t2/main"]
+    assert main_self == main_total  # the workers' spans are not its children
+    assert got["spans"]["t2/worker"][2] == workers * rounds
+    assert got["counters"]["t2/items"] == workers * rounds + 5
+    assert trace.counter("t2/items") >= workers * rounds + 5
+
+
+def check_only_the_outermost_epoch_keeps_a_record():
+    with trace.span("t3/before"):
+        pass
+    with trace.epoch():
+        with trace.span("train/step"):
+            trace.count("t3/launches")
+        outer = trace.last_epoch()
+        with trace.epoch():
+            with trace.span("train/step"):
+                trace.count("t3/launches")
+        assert trace.last_epoch() is outer  # the inner scope kept nothing
+    rec = trace.last_epoch()
+    assert rec is not outer
+    assert "t3/before" not in rec["spans"]
+    assert rec["spans"]["train/epoch"][2] == 1
+    assert rec["spans"]["train/step"][2] == 2
+    assert rec["counters"] == {"t3/launches": 2}
+    fields = trace.per_step(rec)
+    assert fields["count/t3/launches_per_step"] == 1.0
+    assert fields["time/train/step_ms_per_step"] == pytest.approx(
+        rec["spans"]["train/step"][0] / 2e6)
+    assert trace.per_step({"spans": {}, "counters": {"x": 1}}) == {}
+
+
+def check_spans_annotate_a_running_profiler_and_only_then():
+    made = []
+    real = torch.profiler.record_function
+
+    def counted(name):
+        made.append(name)
+        return real(name)
+
+    with mock.patch.object(torch.profiler, "record_function", counted):
+        with trace.span("step/forward_backward"):
+            pass
+        assert made == []
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        with torch.profiler.profile(activities=acts) as prof:
+            with trace.span("step/forward_backward"):
+                torch.ones(4).sum()
+    assert made == ["step/forward_backward"]
+    names = {e.name for e in prof.events() if e.is_user_annotation}
+    assert "step/forward_backward" in names
+
+
+def _tiny_fixmatch(steps: int):
+    config = default_config({
+        "DATA": {"IMG_SIZE": 32, "BATCH_SIZE": 4, "MU": 2, "IS_CROP": True},
+        "MODEL": {"NUM_CLASSES": 3, "NAME": "resnet_tiny"},
+        "TRAIN": {"IS_SSL": True, "EVAL_STEP": steps, "DTYPE": "float32",
+                  "EPOCHS": 1, "FREQ_EVAL": 1, "SAVE_CP": ""}})
+    torch.manual_seed(0)
+    trainer = FixMatch(build_model(config), "Adam", device="cpu")
+    rng = np.random.default_rng(0)
+    side = int(32 * float(config.DATA.CANONICAL_SCALE))
+
+    def loader(b):
+        while True:
+            yield (rng.integers(0, 256, (b, side, side, 3), dtype=np.uint8),
+                   rng.integers(0, 3, b))
+
+    trainer.get_dataloader((loader(4), loader(8)), None)
+    trainer.get_config(config, labeled_targets=np.arange(12) % 3)
+    return trainer
+
+
+def check_fixmatch_epoch_records_every_step_span():
+    trainer = _tiny_fixmatch(steps=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        logger = MetricLogger(tmp, run_name="t")
+        trainer._train_epoch(1, logger)
+        logger.close()
+        log = (Path(tmp) / "t.jsonl").read_text()
+    rec = trace.last_epoch()
+    spans = rec["spans"]
+    assert spans["train/step"][2] == 3
+    assert spans["loader/next"][2] == 6
+    assert spans["train/epoch"][2] == 1
+    for name in ("step/views", "views/copy_in", "step/forward_backward",
+                 "step/backward", "step/update", "step/drain"):
+        assert spans[name][2] >= 3, name
+    assert spans["views/copy_in"][2] == 6  # the labeled and unlabeled rows
+    assert spans["train/drain"][2] == 1
+    step_total, step_self, _ = spans["train/step"]
+    children = sum(spans[n][0] for n in ("step/views", "step/update",
+                                         "step/forward_backward",
+                                         "step/drain"))
+    assert step_total - step_self == children
+    fb_total, fb_self, _ = spans["step/forward_backward"]
+    assert fb_total - fb_self == spans["step/backward"][0]
+    line = json.loads(log.splitlines()[-1])
+    assert line["time/step/backward_ms_per_step"] == pytest.approx(
+        spans["step/backward"][0] / 3e6)
+    assert line["time/epoch_s"] == pytest.approx(spans["train/epoch"][0] / 1e9)
+    assert line["throughput/images_per_sec"] > 0

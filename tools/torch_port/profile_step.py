@@ -27,7 +27,16 @@ step's ms, the device's busy ms a step (the sum of the device events' self
 times: one stream, so they do not overlap), the device's idle share (1 -
 busy / step), the host's time to enqueue a step, and the ops with the
 most device time; it writes the whole table under ``--out``. Needs a
-card. Under ``torchrun --standalone --nproc_per_node=1`` the step runs in
+card.
+
+The host's side comes from the port's own spans (``utils/trace.py``): the
+unprofiled steps' spans in ms a step (whole and self time), and, from the
+profiled steps, where the card sat idle: every gap between the device's
+busy stretches (the union of kernels and copies on every stream) is
+charged to the innermost port span open on the main thread when the gap
+starts (``(no span)`` outside them), since under a profiler with CPU
+activity the spans are annotations on the kernels' clock. Under
+``torchrun --standalone --nproc_per_node=1`` the step runs in
 a process group of one over NCCL (``parallel/mesh.py::init_from_env``):
 every collective of data parallelism is issued, and the table is written
 as ``path_<P>_group_ops.txt``.
@@ -36,9 +45,10 @@ Path O times its steps with the host clock (two streams run: the step's
 and the decode's), and prints the device's busy time as the union of the
 intervals of every kernel and copy on any stream, the kernels with the
 most device time (nvJPEG's and the resize kernel among them), and the
-host's time a step: on the main thread in the step's enqueue and in the
-wait on the loaders, on the loaders' prefetch threads in their batches
-(wall and CPU time), and the whole process's CPU time.
+host's CPU time a step: the main thread's and the other threads' (the
+loaders' prefetch threads and the core's readers). Its step is
+``FixMatch.train_one``'s loop body, spans included: ``loader/next``, then
+``train/step`` with the drain.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import argparse
 import subprocess
 import sys
 import time
+from collections import Counter, defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -58,6 +69,7 @@ from torch.autograd import DeviceType  # noqa: E402
 
 from endoscopy_tpu_torch.parallel import (in_group, init_from_env,  # noqa: E402
                                           leave_group)
+from endoscopy_tpu_torch.utils import trace  # noqa: E402
 from torch_port_checks import path_c, path_f, path_g, path_o  # noqa: E402
 
 WARMUP = 3
@@ -117,6 +129,7 @@ def profile(args, card: str) -> int:
     torch.cuda.synchronize()
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    before = trace.totals()
     t0 = time.perf_counter()
     start.record()
     for _ in range(args.steps):
@@ -125,6 +138,7 @@ def profile(args, card: str) -> int:
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / args.steps
+    record = trace.since(before)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -148,6 +162,8 @@ def profile(args, card: str) -> int:
           f"enqueue {enqueue_ms:.3f} ms a step; device busy {busy_ms:.3f} ms "
           f"a step (profiled), idle share {1 - busy_ms / step_ms:.4f}",
           flush=True)
+    print_spans(record, args.steps)
+    print_idle_by_span(prof, args.steps)
     top = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=device_us, reverse=True)
     print("ops by self device time a step (ms, share of busy, calls a "
@@ -167,29 +183,74 @@ def profile(args, card: str) -> int:
     return 0
 
 
+def print_spans(record: dict, steps: int) -> None:
+    """The port's spans of ``record`` (a ``trace.since``), ms a step."""
+    print("port spans a step (ms, self ms, count a step), every thread:",
+          flush=True)
+    for name, (total, own, n) in sorted(record["spans"].items(),
+                                        key=lambda kv: -kv[1][0]):
+        print(f"  {total / 1e6 / steps:9.3f}  {own / 1e6 / steps:9.3f}  "
+              f"{n / steps:7.2f}  {name}", flush=True)
+    for name, n in sorted(record["counters"].items()):
+        print(f"  counter {name}: {n / steps:.2f} a step", flush=True)
+
+
+def _device_events(prof) -> list:
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def idle_by_span(prof) -> dict:
+    """``{span: (idle µs, gaps)}``: each gap between the union's busy
+    stretches of the device events charged to the innermost port span
+    (a ``/`` in its name) open on the main thread, the thread of the
+    ``step/forward_backward`` spans, when the gap starts."""
+    spans = [e for e in prof.events() if e.is_user_annotation
+             and e.device_type == DeviceType.CPU and "/" in e.name]
+    main = Counter(e.thread for e in spans
+                   if e.name == "step/forward_backward").most_common(1)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in spans if main and e.thread == main[0][0])
+    out = defaultdict(lambda: [0.0, 0])
+    end = None
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in _device_events(prof)):
+        if end is not None and s > end:
+            # the latest-opened span still open: spans of one thread nest
+            name = "(no span)"
+            for a, b, n in spans:
+                if a > end:
+                    break
+                if b > end:
+                    name = n
+            out[name][0] += s - end
+            out[name][1] += 1
+        end = e if end is None else max(end, e)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def print_idle_by_span(prof, steps: int) -> None:
+    idle = idle_by_span(prof)
+    total = sum(v[0] for v in idle.values()) or 1.0
+    print("device idle by the innermost port span open on the main thread "
+          "(ms a step, share of idle, gaps a step):", flush=True)
+    for name, (us, gaps) in sorted(idle.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {us / 1e3 / steps:9.3f}  {us / total:6.3f}  "
+              f"{gaps / steps:7.1f}  {name}", flush=True)
+
+
 def build_o(seed: int = SEED):
-    """(trainer, one ``fit`` step, the loaders' batch timings) for path O:
-    the generator's files made on the card, the trainer as ``run_config``
-    prepares it, each loader's prefetch thread timed in its batches."""
+    """(one ``fit`` step, close) for path O: the generator's files made on
+    the card, the trainer as ``run_config`` prepares it."""
     import shutil
 
     from endoscopy_tpu_torch.cli import learn
-    from endoscopy_tpu_torch.data import native_loader
     from endoscopy_tpu_torch.data.synthetic import make_synthetic_dataset
+    from endoscopy_tpu_torch.utils.meters import AverageMeter
 
     root = ROOT / "build" / "profile_step" / "synth"
     shutil.rmtree(root, ignore_errors=True)
     make_synthetic_dataset(str(root), seed=seed, **path_o.GENERATOR)
-    batches = []  # (wall s, thread CPU s) of each prefetched batch
-    inner = native_loader._CardStream._batch
-
-    def timed_batch(self, *a, **kw):
-        t, c = time.perf_counter(), time.thread_time()
-        got = inner(self, *a, **kw)
-        batches.append((time.perf_counter() - t, time.thread_time() - c))
-        return got
-
-    native_loader._CardStream._batch = timed_batch
     torch.manual_seed(seed)
     trainer = learn.prepare_trainer(path_o.config(str(root)), device="cuda")
     weights = trainer.class_weights
@@ -197,26 +258,23 @@ def build_o(seed: int = SEED):
         weights = torch.ones(int(trainer.config.MODEL.NUM_CLASSES),
                              device="cuda")
     its = [iter(dl) for dl in trainer.train_dl]
-    pending, split = [], {"wait": 0.0, "enqueue": 0.0}
+    pending, meter = [], AverageMeter()
+    bs = int(trainer.config.DATA.BATCH_SIZE)
 
     def step():  # FixMatch.train_one's loop body
-        t0 = time.perf_counter()
-        x, targets = next(its[0])
-        u, _ = next(its[1])
-        t1 = time.perf_counter()
-        loss, _ = trainer._train_step(x, targets, u, weights)
-        split["wait"] += t1 - t0
-        split["enqueue"] += time.perf_counter() - t1
-        pending.append(loss)
-        while len(pending) > 2:
-            pending.pop(0).detach().flatten().tolist()
+        x, targets = trainer._next(its[0])
+        u, _ = trainer._next(its[1])
+        with trace.span("train/step"):
+            loss, _ = trainer._train_step(x, targets, u, weights)
+            pending.append(loss)
+            trainer._drain_pending(pending, meter, bs)
 
     def close():
         for dl in (*trainer.train_dl, trainer.valid_dl):
             dl.close()
         shutil.rmtree(root, ignore_errors=True)
 
-    return step, batches, split, close
+    return step, close
 
 
 def _union_ms(intervals) -> float:
@@ -235,23 +293,22 @@ def _union_ms(intervals) -> float:
 def profile_o(args, card: str) -> int:
     """Path O: time, then profile, ``args.steps`` ``fit`` steps on JPEG
     files, the loaders running."""
-    step, batches, split, close = build_o()
+    step, close = build_o()
     try:
         for _ in range(WARMUP):
             step()
         torch.cuda.synchronize()
         n = args.steps
-        batches.clear()
-        split.update(wait=0.0, enqueue=0.0)
+        before = trace.totals()
         t0, c0 = time.perf_counter(), time.process_time()
+        m0 = time.thread_time()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / n
+        main_ms = (time.thread_time() - m0) * 1e3 / n
         cpu_ms = (time.process_time() - c0) * 1e3 / n
-        loader_wall = sum(b[0] for b in batches) * 1e3 / n
-        loader_cpu = sum(b[1] for b in batches) * 1e3 / n
-        n_batches, timed = len(batches), dict(split)
+        record = trace.since(before)
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -263,23 +320,21 @@ def profile_o(args, card: str) -> int:
             window_ms = (time.perf_counter() - t0) * 1e3
     finally:
         close()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation]
+    device = _device_events(prof)
     busy_ms = _union_ms((e.time_range.start, e.time_range.end)
                         for e in device)
     idle = (f"{1 - busy_ms / n / step_ms:.4f} of the unprofiled step, "
             f"{1 - busy_ms / window_ms:.4f} of the profiled window" if device
             else "not measured (no device events in the trace)")
     print(f"path O: {n} fit steps after {WARMUP} warm-up steps: step "
-          f"{step_ms:.3f} ms (host clock, unprofiled); the main thread "
-          f"{timed['enqueue'] * 1e3 / n:.3f} ms a step in the step's enqueue "
-          f"and {timed['wait'] * 1e3 / n:.3f} ms waiting on the loaders; the "
-          f"loaders' prefetch threads {loader_wall:.3f} ms wall and "
-          f"{loader_cpu:.3f} ms CPU a step in {n_batches} batches; the "
-          f"process {cpu_ms:.3f} ms CPU a step; profiled window "
+          f"{step_ms:.3f} ms (host clock, unprofiled); host CPU a step: the "
+          f"main thread {main_ms:.3f} ms, the other threads (prefetch, the "
+          f"core's readers) {cpu_ms - main_ms:.3f} ms; profiled window "
           f"{window_ms / n:.3f} ms a step, device busy (union of kernels "
           f"and copies on every stream) {busy_ms / n:.3f} ms a step, idle "
           f"share {idle}", flush=True)
+    print_spans(record, n)
+    print_idle_by_span(prof, n)
     by_name = {}
     for e in device:
         ms, count = by_name.get(e.name, (0.0, 0))
