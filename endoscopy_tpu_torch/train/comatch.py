@@ -252,8 +252,9 @@ class CoMatch(BaseTrainer):
 
     def train_one(self, epoch: int) -> AverageMeter:
         """``TRAIN.EVAL_STEP`` steps with the smoothing gate ``epoch > 0 or
-        batch_idx > queue_batch``. The losses are fetched two steps late,
-        so the host prepares the next step while the card runs."""
+        batch_idx > queue_batch``. Each step's loss is read two steps late,
+        through its own event (``_defer``), so the host prepares the next
+        step while the card runs."""
         with trace.epoch():
             summary_loss = AverageMeter()
             weights = self.class_weights
@@ -270,7 +271,7 @@ class CoMatch(BaseTrainer):
                 with trace.span("train/step"):
                     loss, _ = self._train_step(x_lb, targets, u_canon,
                                                weights, use_queue)
-                    pending.append(loss)
+                    self._defer(pending, loss)
                     self._drain_pending(pending, summary_loss, bs)
             self._drain_pending(pending, summary_loss, bs, keep=0)
         return summary_loss

@@ -53,7 +53,8 @@ Every trainer's ``train_one`` runs inside ``utils/trace.py``'s
 end of its drain, is a ``train/step`` span, whose children are
 ``step/views``, ``step/forward_backward`` (with ``step/backward``, the
 :meth:`BaseTrainer._backward` of the loss), ``step/update`` and
-``step/drain``. ``fit`` writes each epoch's record to the run log.
+``step/drain`` (the counters ``drain/fetches`` and ``drain/waited``).
+``fit`` writes each epoch's record to the run log.
 """
 
 from __future__ import annotations
@@ -287,16 +288,40 @@ class BaseTrainer:
             return next(it)
 
     @staticmethod
+    def _defer(pending: list, loss: torch.Tensor) -> None:
+        """Queue a step's detached loss for :meth:`_drain_pending`. A loss
+        on the card is copied without blocking into page-locked host
+        memory, and an event recorded on its stream right after the copy
+        marks when that step's loss has arrived; a loss on the CPU goes in
+        as it is."""
+        loss = loss.detach()
+        if not loss.is_cuda:
+            pending.append((loss, None))
+            return
+        host = torch.empty(loss.shape, dtype=loss.dtype, pin_memory=True)
+        host.copy_(loss, non_blocking=True)
+        arrived = torch.cuda.Event()
+        arrived.record(torch.cuda.current_stream(loss.device))
+        pending.append((host, arrived))
+
+    @staticmethod
     def _drain_pending(pending: list, summary_loss, batch_size: int,
                        keep: int = 2) -> None:
-        """Fetch all but the last ``keep`` deferred device losses into the
-        meter; ``keep=0`` drains everything (epoch end). A fetch copies the
-        loss on the current stream, behind every step queued there, so it
-        waits for the card to finish them all. Timed as ``step/drain``,
-        the epoch end's as ``train/drain``."""
+        """Read all but the last ``keep`` deferred losses (:meth:`_defer`)
+        into the meter, oldest first; ``keep=0`` drains everything (epoch
+        end). A card entry waits on its own event, so only for the step
+        that made it, never for the steps queued behind it. Counters:
+        ``drain/fetches`` one an entry, ``drain/waited`` an entry whose
+        step the card had not yet finished. Timed as ``step/drain``, the
+        epoch end's as ``train/drain``."""
         with trace.span("step/drain" if keep else "train/drain"):
             while len(pending) > keep:
-                for loss in pending.pop(0).detach().flatten().tolist():
+                host, arrived = pending.pop(0)
+                trace.count("drain/fetches")
+                if arrived is not None and not arrived.query():
+                    trace.count("drain/waited")
+                    arrived.synchronize()
+                for loss in host.flatten().tolist():
                     summary_loss.update(float(loss), batch_size)
 
     # -- evaluation ---------------------------------------------------------

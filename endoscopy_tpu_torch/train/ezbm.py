@@ -134,7 +134,8 @@ class EZBM(BaseTrainer):
 
     def train_one_stage_1(self, epoch: int) -> AverageMeter:
         """``n_iter_per_epoch`` triplet steps; the memory is rebuilt from
-        this epoch's anchors. The losses are fetched two steps late."""
+        this epoch's anchors. The losses are read two steps late
+        (``_defer``)."""
         with trace.epoch():
             summary_loss = AverageMeter()
             weights = self.class_weights
@@ -151,7 +152,7 @@ class EZBM(BaseTrainer):
                     x3 = self._build_triplet_batch(batch_u8, targets)
                     loss, anchor_fts = self._stage1_step(x3, targets,
                                                          weights)
-                    pending.append(loss)
+                    self._defer(pending, loss)
                     self.mem_features.append(anchor_fts)
                     self.mem_targets.append(np.asarray(targets))
                     self._drain_pending(pending, summary_loss, bs)
@@ -286,7 +287,7 @@ class EZBM(BaseTrainer):
                     loss = self._stage2_core(feats[dev(idx)], dev(y),
                                              feats[dev(dual)], dev(yd),
                                              dev(lam, torch.float32))
-                    pending.append(loss)
+                    self._defer(pending, loss)
                     self._drain_pending(pending, summary_loss, bs2)
             self._drain_pending(pending, summary_loss, bs2, keep=0)
         return summary_loss

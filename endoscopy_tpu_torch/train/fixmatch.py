@@ -127,8 +127,9 @@ class FixMatch(BaseTrainer):
         return self._train_micro(micro(), weights)
 
     def train_one(self, epoch: int) -> AverageMeter:
-        """``TRAIN.EVAL_STEP`` steps. The losses are fetched two steps
-        late, so the host prepares the next step while the card runs."""
+        """``TRAIN.EVAL_STEP`` steps. Each step's loss is read two steps
+        late, through its own event (``_defer``), so the host prepares the
+        next step while the card still runs the two before it."""
         with trace.epoch():
             summary_loss = AverageMeter()
             weights = self.class_weights
@@ -145,7 +146,7 @@ class FixMatch(BaseTrainer):
                 with trace.span("train/step"):
                     loss, _ = self._train_step(x_lb, targets, u_canon,
                                                weights)
-                    pending.append(loss)
+                    self._defer(pending, loss)
                     self._drain_pending(pending, summary_loss, bs)
             self._drain_pending(pending, summary_loss, bs, keep=0)
         return summary_loss

@@ -122,8 +122,8 @@ class SemiFormer(FixMatch):
 
     def train_one(self, epoch: int) -> AverageMeter:
         """A warmup sweep of the labeled set before ``EVAL_STEP_SUP``, else
-        ``EVAL_STEP`` FixMatch-phase steps; the losses are fetched two
-        steps late."""
+        ``EVAL_STEP`` FixMatch-phase steps; each step's loss is read two
+        steps late, through its own event (``_defer``)."""
         with trace.epoch():
             if epoch >= self.eval_step_sup:
                 return super().train_one(epoch)
@@ -139,7 +139,8 @@ class SemiFormer(FixMatch):
             for _ in range(sweep_steps(labeled, bs, self.device)):
                 x_lb, targets = self._next(it)
                 with trace.span("train/step"):
-                    pending.append(self._warmup_step(x_lb, targets, weights))
+                    self._defer(pending,
+                                self._warmup_step(x_lb, targets, weights))
                     self._drain_pending(pending, summary_loss, bs)
             self._drain_pending(pending, summary_loss, bs, keep=0)
         return summary_loss

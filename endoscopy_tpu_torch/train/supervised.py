@@ -243,8 +243,8 @@ class SupLearning(BaseTrainer):
                           device=self.device)
 
     def train_one(self, epoch: int) -> AverageMeter:
-        """``n_iter_per_epoch`` steps; the losses are fetched two steps
-        late, the triplet distances once at the end."""
+        """``n_iter_per_epoch`` steps; the losses are read two steps late
+        (``_defer``), the triplet distances once at the end."""
         with trace.epoch():
             summary_loss = AverageMeter()
             weights = self._epoch_weights(epoch)
@@ -258,7 +258,7 @@ class SupLearning(BaseTrainer):
                         batch_u8 = self._build_triplet_batch(batch_u8,
                                                              targets)
                     loss, aux = self._train_step(batch_u8, targets, weights)
-                    pending.append(loss)
+                    self._defer(pending, loss)
                     self._drain_pending(pending, summary_loss, bs)
             self._drain_pending(pending, summary_loss, bs, keep=0)
         if self.is_triplet and aux:

@@ -16,7 +16,9 @@ from endoscopy_tpu_torch.aug import ops
 from endoscopy_tpu_torch.aug import randaugment as tra
 from endoscopy_tpu_torch.data import jpeg_card
 from endoscopy_tpu_torch.ops import randaugment_kernel as tk
+from endoscopy_tpu_torch.train.common import BaseTrainer
 from endoscopy_tpu_torch.utils import trace
+from endoscopy_tpu_torch.utils.meters import AverageMeter
 from torch_port_checks import path_o
 
 torch.set_num_threads(1)
@@ -38,8 +40,8 @@ def test_kernel_matches_plain_on_card():
     step through the kernel on the card against the CPU, and one
     supervised step of each branch (no kernel) on the card against the
     CPU. Then the resize kernel against its plain version on odd shapes,
-    1 and 224 images, and the card's decode on batches with a broken
-    file."""
+    1 and 224 images, the card's decode on batches with a broken file, and
+    the trainers' deferred losses read while later work still runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernel has no CPU mode")
     ext = tk.build()
@@ -54,6 +56,7 @@ def test_kernel_matches_plain_on_card():
     _resnet_tiny_supervised_steps_match_cpu()
     _resize_kernel_matches_plain()
     _broken_file_in_a_batch()
+    _deferred_losses_wait_only_for_their_steps()
 
 
 def _forced_case(side, mode, dtype, seed=0):
@@ -268,3 +271,24 @@ def _broken_file_in_a_batch():
             for i in (0, n - 1):
                 assert torch.equal(image(flat, offsets, i), clean), (how, n, i)
             assert not any(jpeg_card.decode_raw([whole] * n)[3]), (how, n)
+
+
+def _deferred_losses_wait_only_for_their_steps():
+    """Two known losses deferred (``BaseTrainer._defer``), then about half
+    a second of device work queued behind them: the drain reads their
+    exact values into the meter, in order, while the stream still runs
+    that work, so it waited only for the work that made them. Each
+    entry's host tensor is pinned."""
+    losses = torch.tensor([[0.5, 1.75], [2.25, -3.0]], device="cuda") * 2
+    pending, meter = [], AverageMeter()
+    for loss in losses:
+        BaseTrainer._defer(pending, loss)
+    assert all(host.is_pinned() for host, _ in pending)
+    torch.cuda._sleep(1_000_000_000)
+    before = trace.counter("drain/fetches")
+    BaseTrainer._drain_pending(pending, meter, 4, keep=0)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy, "the drain waited for the work queued after the losses"
+    assert pending == [] and trace.counter("drain/fetches") - before == 2
+    assert (meter.sum, meter.count, meter.val) == (12.0, 16, -6.0)

@@ -1,6 +1,7 @@
 """The port's tracer (``endoscopy_tpu_torch/utils/trace.py``): self time
 under nesting, the threads' totals, the epoch records, the profiler's
-annotations, and the spans of a tiny FixMatch epoch and its run log."""
+annotations, the spans of a tiny FixMatch epoch and its run log, and the
+epoch's deferred losses."""
 
 import json
 import sys
@@ -19,6 +20,7 @@ from endoscopy_tpu_torch.models import build_model
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
 from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.logging import MetricLogger
+from endoscopy_tpu_torch.utils.meters import AverageMeter
 
 
 def check_self_time_is_the_span_less_its_children():
@@ -167,3 +169,48 @@ def check_fixmatch_epoch_records_every_step_span():
         spans["step/backward"][0] / 3e6)
     assert line["time/epoch_s"] == pytest.approx(spans["train/epoch"][0] / 1e9)
     assert line["throughput/images_per_sec"] > 0
+
+
+def check_fixmatch_epoch_reads_every_loss_in_step_order():
+    """The meter of a tiny FixMatch epoch holds the losses its steps
+    computed, in step order; each is read once (``drain/fetches``), none
+    waits for an event on the CPU (``drain/waited`` unset), and at most
+    two stay pending after any step."""
+    steps = 5
+    trainer = _tiny_fixmatch(steps=steps)
+    losses, left = [], []
+    step, drain = trainer._train_step, trainer._drain_pending
+
+    def recorded_step(*args):
+        loss, aux = step(*args)
+        losses.append(loss.detach().clone())
+        return loss, aux
+
+    def watched_drain(pending, summary_loss, batch_size, keep=2):
+        assert all(host.device.type == "cpu" and arrived is None
+                   for host, arrived in pending)
+        drain(pending, summary_loss, batch_size, keep)
+        left.append(len(pending))
+
+    read = []
+    update = AverageMeter.update
+
+    def recorded_update(meter, val, n=1):
+        read.append((val, n))
+        update(meter, val, n)
+
+    trainer._train_step = recorded_step
+    trainer._drain_pending = watched_drain
+    with mock.patch.object(AverageMeter, "update", recorded_update):
+        meter = trainer.train_one(1)
+    assert len(losses) == steps
+    assert read == [(float(loss), 4) for loss in losses]
+    expected = AverageMeter()
+    for loss in losses:
+        expected.update(float(loss), 4)
+    assert (meter.sum, meter.count) == (expected.sum, expected.count)
+    assert meter.count == steps * 4
+    assert left == [1, 2, 2, 2, 2, 0]  # after each step, then the epoch end
+    counters = trace.last_epoch()["counters"]
+    assert counters["drain/fetches"] == steps
+    assert "drain/waited" not in counters

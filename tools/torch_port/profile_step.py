@@ -266,7 +266,7 @@ def build_o(seed: int = SEED):
         u, _ = trainer._next(its[1])
         with trace.span("train/step"):
             loss, _ = trainer._train_step(x, targets, u, weights)
-            pending.append(loss)
+            trainer._defer(pending, loss)
             trainer._drain_pending(pending, meter, bs)
 
     def close():
