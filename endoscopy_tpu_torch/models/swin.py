@@ -32,6 +32,12 @@ The JAX module's numerics are kept:
 The window sizes, the masks and the bias index are fixed when the model is
 built for ``img_size`` px (non-persistent buffers), as flax fixes them from
 the input at init: a model built for one side refuses another.
+
+Each :class:`WindowAttention` forward runs in the span
+``model/window_attention`` (the host's enqueue of the bias gather, the
+products, the logits chain, the softmax and the projection) and adds to
+the counter ``swin/window_logit_bytes`` the bytes of the float32 logits it
+materialises, ``B·nW · heads · n² · 4`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from torch import nn
 from endoscopy_tpu_torch.models.layers import (attention, norm32,
                                                truncated_normal, wide)
 from endoscopy_tpu_torch.models.resnet import conv2d, dense
+from endoscopy_tpu_torch.utils import trace
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -108,6 +115,10 @@ class WindowAttention(nn.Module):
         self.proj = dense(dim, dim)
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        with trace.span("model/window_attention"):
+            return self._forward(x, mask)
+
+    def _forward(self, x: torch.Tensor, mask) -> torch.Tensor:
         bnw, n, c = x.shape
         heads = self.num_heads
         hd = c // heads
@@ -126,6 +137,7 @@ class WindowAttention(nn.Module):
                     + mask[None, :, None]).reshape(bnw, heads, n, n)
 
         out = attention(q, k, v, logits).transpose(1, 2).reshape(bnw, n, c)
+        trace.count("swin/window_logit_bytes", bnw * heads * n * n * 4)
         return self.proj(out)
 
 

@@ -214,3 +214,23 @@ def check_fixmatch_epoch_reads_every_loss_in_step_order():
     counters = trace.last_epoch()["counters"]
     assert counters["drain/fetches"] == steps
     assert "drain/waited" not in counters
+
+
+def check_swin_window_attention_span_and_logit_bytes():
+    """A tiny Swin's forward inside an epoch: one ``model/window_attention``
+    span per block, and ``swin/window_logit_bytes`` the float32 logits
+    every block materialises, ``B·nW · heads · n² · 4`` summed."""
+    from endoscopy_tpu_torch.models import swin
+
+    model = swin.SwinTransformer(32, patch_size=4, embed_dim=16,
+                                 depths=(2, 2), num_heads=(2, 4),
+                                 window_size=4)
+    b = 3
+    # two blocks of 8x8 tokens in 4 windows of 4x4 (2 heads), then two of
+    # one 4x4 window (4 heads)
+    expected = 2 * (b * 4 * 2 * 16 ** 2 * 4) + 2 * (b * 1 * 4 * 16 ** 2 * 4)
+    with torch.no_grad(), trace.epoch():
+        model(torch.randn(b, 3, 32, 32))
+    rec = trace.last_epoch()
+    assert rec["spans"]["model/window_attention"][2] == 4
+    assert rec["counters"]["swin/window_logit_bytes"] == expected
