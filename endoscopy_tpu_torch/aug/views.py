@@ -18,11 +18,21 @@ CUDA kernel; the plain version runs only for tensors on the CPU. The
 labeled train view, CoMatch's colour-jitter view and the paper-reproduction
 views (``DATA.IS_REPROD``) are plain PyTorch: the reference computes them
 with XLA, outside any Pallas kernel.
+
+Every view takes its rows through :func:`_u8_on_device` (the span
+``views/copy_in``). Host rows bound for a card are copied into page-locked
+memory and sent on a copy stream of the calling thread's own, which the
+current stream waits for, so the host does not wait for the card's queue
+to drain (the counter ``views/staged``, one a batch). Rows already on the
+card (the JPEG route's) bypass it, and on the CPU the rows are used where
+they lie. Nothing else in a view waits for the card: :func:`normalize`
+makes its constants once per dtype and device.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -38,22 +48,72 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(dtype: torch.dtype, device: torch.device):
+    """ImageNet's mean and std in ``dtype`` on ``device``, made once: a
+    tensor made from a list on a card waits for the card's queue."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
 def normalize(img: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """ToTensor + Normalize(mean, std) on [0, 255] input, in img's dtype."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device)
-    std = torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device)
+    mean, std = _mean_std(img.dtype, img.device)
     return ((img / 255.0 - mean) / std).to(dtype)
 
 
+_copy = threading.local()  # .streams: this thread's copy stream per card
+
+
+def _copy_stream(dev: torch.device) -> torch.cuda.Stream:
+    """This thread's copy stream on the card ``dev``, made at first use."""
+    streams = _copy.__dict__.setdefault("streams", {})
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in streams:
+        streams[index] = torch.cuda.Stream(index)
+    return streams[index]
+
+
+def _staged(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """Host rows ``x`` on the card ``dev`` without waiting for the card
+    (a pageable copy of a batch returns only once the current stream
+    reaches it).
+
+    The rows are copied on the host into a page-locked buffer before this
+    returns, so the caller may reuse its array at once; the buffer goes to
+    the card on this thread's copy stream, which the current stream waits
+    for. PyTorch's host allocator hands the buffer out again only once the
+    copy recorded on it has finished, and the result is recorded on the
+    current stream, so the card's allocator keeps it until the work queued
+    there has read it."""
+    pinned = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    pinned.copy_(x)
+    copy = _copy_stream(dev)
+    with torch.cuda.stream(copy):
+        out = pinned.to(dev, non_blocking=True)
+    current = torch.cuda.current_stream(dev)
+    current.wait_stream(copy)
+    out.record_stream(current)
+    trace.count("views/staged")
+    return out
+
+
 def _u8_on_device(batch_u8, device) -> torch.Tensor:
-    """The uint8 batch on ``device``; the host→device copy is the span
-    ``views/copy_in``."""
+    """The uint8 batch on ``device``, in the span ``views/copy_in``.
+
+    Host rows (a numpy array or a CPU tensor) bound for a card go through
+    :func:`_staged`, one ``views/staged`` count each. A tensor already on
+    the card (the JPEG route's rows) is returned as it is, and on the CPU
+    the batch is the host's own tensor."""
     x = torch.as_tensor(batch_u8)
     if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[3] != 3:
         raise ValueError(f"expected a uint8 (B, S, S, 3) batch, got "
                          f"{x.dtype} {tuple(x.shape)}")
+    dev = resolve_device(device)
     with trace.span("views/copy_in"):
-        return x.to(resolve_device(device), non_blocking=True)
+        if dev.type == "cuda" and x.device.type == "cpu":
+            return _staged(x, dev)
+        return x.to(dev, non_blocking=True)
 
 
 def _center(x: torch.Tensor, img_size: int) -> torch.Tensor:

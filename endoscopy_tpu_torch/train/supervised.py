@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from endoscopy_tpu_torch.aug.mixup import mixup_cutmix
-from endoscopy_tpu_torch.aug.views import (labeled_draws, labeled_train_view,
+from endoscopy_tpu_torch.aug.views import (_u8_on_device, labeled_draws,
+                                           labeled_train_view,
                                            reproduce_draws,
                                            reproduce_train_view)
 from endoscopy_tpu_torch.config.loader import is_none
@@ -178,8 +179,8 @@ class SupLearning(BaseTrainer):
         the global ``[A; P; N]``); the copy of the batch and the views are
         the span ``step/views``."""
         accum = self.grad_accum
-        with trace.span("step/views"), trace.span("views/copy_in"):
-            x = torch.as_tensor(batch_u8).to(self.device, non_blocking=True)
+        with trace.span("step/views"):
+            x = _u8_on_device(batch_u8, self.device)
         t = torch.as_tensor(targets).to(self.device, torch.long,
                                         non_blocking=True)
         if t.shape[0] % accum:

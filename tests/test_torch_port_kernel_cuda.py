@@ -9,11 +9,15 @@ without the JAX package's test configuration:
         tests/test_torch_port_kernel_cuda.py
 """
 
+import threading
+
+import numpy as np
 import pytest
 import torch
 
 from endoscopy_tpu_torch.aug import ops
 from endoscopy_tpu_torch.aug import randaugment as tra
+from endoscopy_tpu_torch.aug import views
 from endoscopy_tpu_torch.data import jpeg_card
 from endoscopy_tpu_torch.ops import randaugment_kernel as tk
 from endoscopy_tpu_torch.train.common import BaseTrainer
@@ -40,8 +44,9 @@ def test_kernel_matches_plain_on_card():
     step through the kernel on the card against the CPU, and one
     supervised step of each branch (no kernel) on the card against the
     CPU. Then the resize kernel against its plain version on odd shapes,
-    1 and 224 images, the card's decode on batches with a broken file, and
-    the trainers' deferred losses read while later work still runs."""
+    1 and 224 images, the card's decode on batches with a broken file, the
+    trainers' deferred losses read while later work still runs, and host
+    rows staged to the card while it is busy."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernel has no CPU mode")
     ext = tk.build()
@@ -57,6 +62,7 @@ def test_kernel_matches_plain_on_card():
     _resize_kernel_matches_plain()
     _broken_file_in_a_batch()
     _deferred_losses_wait_only_for_their_steps()
+    _staged_rows_survive_reuse()
 
 
 def _forced_case(side, mode, dtype, seed=0):
@@ -292,3 +298,59 @@ def _deferred_losses_wait_only_for_their_steps():
     assert busy, "the drain waited for the work queued after the losses"
     assert pending == [] and trace.counter("drain/fetches") - before == 2
     assert (meter.sum, meter.count, meter.val) == (12.0, 16, -6.0)
+
+
+def _staged_rows_survive_reuse():
+    """Eight host batches of two shapes staged back to back through
+    ``views._u8_on_device`` while about half a second of work keeps the
+    card busy, each numpy array overwritten as soon as the call returns,
+    and one more from a second thread at the same time, then an eval
+    view: the calls return before the card reaches them, every card batch
+    holds its original rows, the second thread stages on a copy stream of
+    its own, each batch (the view's too) counts once in ``views/staged``,
+    and the view equals the CPU's. A card tensor comes back as the same storage,
+    uncounted."""
+    shapes = ((32, 64, 64, 3), (7, 40, 40, 3))
+    for shape in shapes:  # the host allocator's first blocks, made idle
+        views._u8_on_device(np.zeros(shape, np.uint8), "cuda")
+    views.eval_view(np.zeros(shapes[0], np.uint8), 56, device="cuda")
+    torch.cuda.synchronize()
+    other = {}
+
+    def second_thread():
+        host = np.random.default_rng(1).integers(0, 256, shapes[0],
+                                                 dtype=np.uint8)
+        other["want"] = host.copy()
+        other["got"] = views._u8_on_device(host, "cuda")
+        host[...] = 255 - host
+        other["stream"] = views._copy_stream(torch.device("cuda"))
+
+    rng = np.random.default_rng(0)
+    wanted, staged = [], []
+    before = trace.counter("views/staged")
+    torch.cuda._sleep(1_000_000_000)
+    thread = threading.Thread(target=second_thread)
+    thread.start()
+    for i in range(8):
+        host = rng.integers(0, 256, shapes[i % 2], dtype=np.uint8)
+        wanted.append(host.copy())
+        staged.append(views._u8_on_device(host, "cuda"))
+        host[...] = 255 - host  # the caller reuses its array at once
+    host = rng.integers(0, 256, shapes[0], dtype=np.uint8)
+    view = views.eval_view(host, 56, device="cuda")
+    thread.join(timeout=60)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy, "staging waited for the work queued before it"
+    torch.testing.assert_close(view.cpu(),
+                               views.eval_view(host, 56, device="cpu"))
+    assert not thread.is_alive() and len(other) == 3
+    for want, got in zip(wanted + [other["want"]], staged + [other["got"]]):
+        assert torch.equal(got.cpu(), torch.from_numpy(want))
+    assert other["stream"] != views._copy_stream(torch.device("cuda"))
+    assert trace.counter("views/staged") - before == 10
+    card = staged[0]
+    back = views._u8_on_device(card, "cuda")
+    assert (back.untyped_storage().data_ptr()
+            == card.untyped_storage().data_ptr())
+    assert trace.counter("views/staged") - before == 10

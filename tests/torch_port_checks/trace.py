@@ -1,7 +1,7 @@
 """The port's tracer (``endoscopy_tpu_torch/utils/trace.py``): self time
 under nesting, the threads' totals, the epoch records, the profiler's
-annotations, the spans of a tiny FixMatch epoch and its run log, and the
-epoch's deferred losses."""
+annotations, the spans of a tiny FixMatch epoch and its run log, the
+epoch's deferred losses, and its views' rows left on the CPU."""
 
 import json
 import sys
@@ -214,6 +214,39 @@ def check_fixmatch_epoch_reads_every_loss_in_step_order():
     counters = trace.last_epoch()["counters"]
     assert counters["drain/fetches"] == steps
     assert "drain/waited" not in counters
+
+
+def check_fixmatch_epoch_on_the_cpu_stages_nothing():
+    """A tiny FixMatch epoch on the CPU: no batch goes through the card's
+    staging (``views/staged`` unset), each step's views equal those of a
+    plain ``.to(device)`` of the rows from the same draws, and the rows
+    are the loader's own array."""
+    from endoscopy_tpu_torch.aug import views
+
+    def plain_copy(batch_u8, device):
+        with trace.span("views/copy_in"):
+            return torch.as_tensor(batch_u8).to(views.resolve_device(device),
+                                                non_blocking=True)
+
+    trainer = _tiny_fixmatch(steps=3)
+    take_views, g = trainer._views, trainer.generator
+    compared = []
+
+    def both_views(x_lb_u8, u_u8):
+        start = g.get_state()
+        with mock.patch.object(views, "_u8_on_device", plain_copy):
+            want = take_views(x_lb_u8, u_u8)
+        g.set_state(start)
+        got = take_views(x_lb_u8, u_u8)
+        compared.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+        return got
+
+    trainer._views = both_views
+    trainer.train_one(1)
+    assert compared == [True] * 3
+    assert "views/staged" not in trace.last_epoch()["counters"]
+    rows = np.zeros((2, 8, 8, 3), np.uint8)
+    assert views._u8_on_device(rows, "cpu").data_ptr() == rows.ctypes.data
 
 
 def check_swin_window_attention_span_and_logit_bytes():
