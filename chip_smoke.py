@@ -1642,7 +1642,7 @@ def supervised_chain(trainer1, data, evals):
     from endoscopy_tpu_torch.data.manifest import Manifest
     from endoscopy_tpu_torch.data.pipeline import EvalLoader
     from endoscopy_tpu_torch.models import build_model
-    from endoscopy_tpu_torch.train.common import model_logits
+    from endoscopy_tpu_torch.models.heads import model_logits
 
     cfg = trainer1.config
     latest = ckpt_io.latest_checkpoint(cfg.TRAIN.SAVE_CP)

@@ -19,7 +19,7 @@ labeled train view, CoMatch's colour-jitter view and the paper-reproduction
 views (``DATA.IS_REPROD``) are plain PyTorch: the reference computes them
 with XLA, outside any Pallas kernel.
 
-Every view takes its rows through :func:`_u8_on_device` (the span
+Every view takes its rows through :func:`rows_on_device` (the span
 ``views/copy_in``). Host rows bound for a card are copied into page-locked
 memory and sent on a copy stream of the calling thread's own, which the
 current stream waits for, so the host does not wait for the card's queue
@@ -98,7 +98,7 @@ def _staged(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return out
 
 
-def _u8_on_device(batch_u8, device) -> torch.Tensor:
+def rows_on_device(batch_u8, device) -> torch.Tensor:
     """The uint8 batch on ``device``, in the span ``views/copy_in``.
 
     Host rows (a numpy array or a CPU tensor) bound for a card go through
@@ -124,7 +124,7 @@ def _center(x: torch.Tensor, img_size: int) -> torch.Tensor:
 def _center_float(batch_u8, img_size: int, dtype, device) -> torch.Tensor:
     """The center crop of the uint8 batch on ``device``, cast to ``dtype``
     (the crop first, so only the kept pixels are cast)."""
-    return _center(_u8_on_device(batch_u8, device), img_size).to(dtype)
+    return _center(rows_on_device(batch_u8, device), img_size).to(dtype)
 
 
 def _flip_where(x: torch.Tensor, flips, flip=ops.hflip) -> torch.Tensor:
@@ -240,7 +240,7 @@ def labeled_train_view(batch_u8, img_size: int, dtype=torch.float32,
     override the generator's draws. The factors act in ``dtype``, as the
     reference draws them in the image dtype.
     """
-    x = _u8_on_device(batch_u8, device)
+    x = rows_on_device(batch_u8, device)
     b = x.shape[0]
     given = {"hflips": hflips, "vflips": vflips, "angles": angles,
              "factors": factors, "orders": orders}
@@ -391,7 +391,7 @@ def reproduce_train_view(batch_u8, img_size: int, dtype=torch.float32,
     and vflip (each p=0.5) → rotate by U(-90, 90)° → normalize with mean =
     std = 0.5. ``hflips``/``vflips`` (B,) bool and ``angles`` (B,) float32
     degrees override the generator's draws."""
-    x = _u8_on_device(batch_u8, device)
+    x = rows_on_device(batch_u8, device)
     b = x.shape[0]
     given = {"hflips": hflips, "vflips": vflips, "angles": angles}
     hflips, vflips, angles = _fill_draws(
@@ -406,5 +406,5 @@ def reproduce_eval_view(batch_u8, img_size: int, dtype=torch.float32,
                         device=None) -> torch.Tensor:
     """The paper-reproduction eval view: resize to ``img_size`` →
     normalize with mean = std = 0.5."""
-    x = _u8_on_device(batch_u8, device).to(dtype)
+    x = rows_on_device(batch_u8, device).to(dtype)
     return _normalize_half(_resize_square(x, img_size), dtype)

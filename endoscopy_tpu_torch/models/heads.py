@@ -14,6 +14,9 @@ package's); in a process group the trainer sets ``rows``, the global
 batch's row count and this rank's rows, and the head draws the global
 batch's mask and keeps its rows. Its BN keeps flax's running variance
 (``models/resnet.py::_flax_running_var``).
+
+:func:`model_logits` takes the logits out of a model's output, for the
+trainers' losses and evaluation and for serving.
 """
 
 from __future__ import annotations
@@ -27,6 +30,15 @@ from endoscopy_tpu_torch.models.resnet import (BatchNorm1d, _flax_running_var,
                                                dense)
 
 KEEP = 0.8  # 1 - the MLP head's dropout rate
+
+
+def model_logits(out):
+    """Logits of a model's output: ``ModelwEmb`` returns ``(logits, fts,
+    fts_low)``, the Conformer ``(conv, trans)`` (its conv head's), a plain
+    classifier its logits."""
+    if isinstance(out, tuple):
+        return out[0]
+    return out
 
 
 class LinearHead(nn.Module):

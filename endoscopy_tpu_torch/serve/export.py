@@ -14,7 +14,7 @@ ViT-LSA's position embedding, are built for it), and runs the same eval
 forward: canonical uint8 NHWC → center crop + ImageNet normalize (under
 ``is_reprod``, a model trained with ``DATA.IS_REPROD``: resize + the mean
 = std = 0.5 normalize) → backbone → head → float32 softmax. A model with
-several outputs serves its first (``train/common.py::model_logits``):
+several outputs serves its first (``models/heads.py::model_logits``):
 ``ModelwEmb``'s logits, the Conformer's conv head alone, as the JAX export
 does. An artifact
 without ``model`` (written before it) rebuilds from ``arch`` and
@@ -42,10 +42,10 @@ from endoscopy_tpu_torch.config.loader import default_config
 from endoscopy_tpu_torch.data.pipeline import canonical_size
 from endoscopy_tpu_torch.device import resolve_device, resolve_dtype
 from endoscopy_tpu_torch.models import build_model
+from endoscopy_tpu_torch.models.heads import model_logits
 from endoscopy_tpu_torch.models.registry import CONFORMER_FIELDS
 from endoscopy_tpu_torch.serve.quantize import (dequantize_state_dict,
                                                 quantize_state_dict)
-from endoscopy_tpu_torch.train.common import model_logits
 
 FORMAT = "endoscopy_tpu_torch.serve/1"
 # the MODEL fields besides NAME and NUM_CLASSES that shape the built model

@@ -245,33 +245,21 @@ class CoMatch(BaseTrainer):
     def _train_step(self, x_lb_u8, targets, u_canon_u8, weights,
                     use_queue: bool):
         """One step from the canonical uint8 batches."""
-        t = torch.as_tensor(targets).to(self.device, torch.long,
-                                        non_blocking=True)
-        return self._train_core(*self._views(x_lb_u8, u_canon_u8), t,
-                                weights, use_queue)
+        return self._train_core(*self._views(x_lb_u8, u_canon_u8),
+                                self._to_device(targets), weights, use_queue)
 
     def train_one(self, epoch: int) -> AverageMeter:
-        """``TRAIN.EVAL_STEP`` steps with the smoothing gate ``epoch > 0 or
-        batch_idx > queue_batch``. Each step's loss is read two steps late,
-        through its own event (``_defer``), so the host prepares the next
-        step while the card runs."""
-        with trace.epoch():
-            summary_loss = AverageMeter()
-            weights = self.class_weights
-            if weights is None:
-                weights = torch.ones(self.num_classes, device=self.device)
-            labeled_iter = iter(self.train_dl[0])
-            unlabeled_iter = iter(self.train_dl[1])
-            bs = int(self.config.DATA.BATCH_SIZE)
-            pending = []
-            for batch_idx in range(int(self.config.TRAIN.EVAL_STEP)):
-                x_lb, targets = self._next(labeled_iter)
-                u_canon, _ = self._next(unlabeled_iter)
-                use_queue = epoch > 0 or batch_idx > self.queue_batch
-                with trace.span("train/step"):
-                    loss, _ = self._train_step(x_lb, targets, u_canon,
-                                               weights, use_queue)
-                    self._defer(pending, loss)
-                    self._drain_pending(pending, summary_loss, bs)
-            self._drain_pending(pending, summary_loss, bs, keep=0)
-        return summary_loss
+        """``TRAIN.EVAL_STEP`` steps (``BaseTrainer._run_steps``) with the
+        smoothing gate ``epoch > 0 or batch_idx > queue_batch``."""
+        weights = self._step_weights()
+
+        def step(batch_idx, batches):
+            (x_lb, targets), (u_canon, _) = batches
+            use_queue = epoch > 0 or batch_idx > self.queue_batch
+            return self._train_step(x_lb, targets, u_canon, weights,
+                                    use_queue)[0]
+
+        return self._run_steps(
+            enumerate(self._batches(int(self.config.TRAIN.EVAL_STEP),
+                                    *self.train_dl)),
+            step, int(self.config.DATA.BATCH_SIZE))

@@ -47,10 +47,14 @@ those of the 1-process step on that global batch:
   hosts do), rank 0 alone writes checkpoints and the metric log, and a
   preemption on any rank stops every rank at the same epoch boundary.
 
-Every trainer's ``train_one`` runs inside ``utils/trace.py``'s
-``epoch()`` and takes its batches through :meth:`BaseTrainer._next`
-(span ``loader/next``); each step, from the last batch's return to the
-end of its drain, is a ``train/step`` span, whose children are
+Every trainer's ``train_one`` is one :meth:`BaseTrainer._run_steps`: the
+epoch loop, inside ``utils/trace.py``'s ``epoch()``, which reads each
+step's loss two steps late. The trainers take their batches through
+:meth:`BaseTrainer._batches` (span ``loader/next``), their labels through
+:meth:`BaseTrainer._to_device` and their class weights from
+:meth:`BaseTrainer._step_weights`; their rows reach the card through
+``aug/views.py::rows_on_device``. Each step, from the last batch's return
+to the end of its drain, is a ``train/step`` span, whose children are
 ``step/views``, ``step/forward_backward`` (with ``step/backward``, the
 :meth:`BaseTrainer._backward` of the loss), ``step/update`` and
 ``step/drain`` (the counters ``drain/fetches`` and ``drain/waited``).
@@ -59,7 +63,7 @@ end of its drain, is a ``train/step`` span, whose children are
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -71,7 +75,7 @@ from endoscopy_tpu_torch.ckpt.convert import train_state_from_npz
 from endoscopy_tpu_torch.device import resolve_device, resolve_dtype
 from endoscopy_tpu_torch.eval.metrics import calculate_metrics, confusion_matrix
 from endoscopy_tpu_torch.losses import balanced_class_weights, cross_entropy
-from endoscopy_tpu_torch.models.heads import MLPHead
+from endoscopy_tpu_torch.models.heads import MLPHead, model_logits
 from endoscopy_tpu_torch.optim import build_optimizer, build_schedule, set_lr
 from endoscopy_tpu_torch.parallel import (all_reduce_max, all_reduce_min,
                                           all_reduce_sum, broadcast_state,
@@ -84,14 +88,6 @@ from endoscopy_tpu_torch.train.state import TrainState
 from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.logging import MetricLogger
 from endoscopy_tpu_torch.utils.meters import AverageMeter
-
-
-def model_logits(out):
-    """Logits of a model's output: ``ModelwEmb`` returns ``(logits, fts,
-    fts_low)``, a plain classifier its logits."""
-    if isinstance(out, tuple):
-        return out[0]
-    return out
 
 
 def trainable_mask(model: nn.Module, freeze_backbone: bool
@@ -196,6 +192,21 @@ class BaseTrainer:
         for m in self._dropout_heads:
             m.generator = self.generator
 
+    # -- host data on the device ---------------------------------------------
+
+    def _to_device(self, a, dtype=torch.long) -> torch.Tensor:
+        """Host labels (or another small host array, as ``dtype``) on the
+        trainer's device, copied without blocking."""
+        return torch.as_tensor(a).to(self.device, dtype, non_blocking=True)
+
+    def _step_weights(self) -> torch.Tensor:
+        """A step's class weights: the balanced ones under
+        ``TRAIN.CLS_WEIGHT``, else ones."""
+        if self.class_weights is not None:
+            return self.class_weights
+        return torch.ones(int(self.config.MODEL.NUM_CLASSES),
+                          device=self.device)
+
     # -- the rows of a rank ---------------------------------------------------
 
     @staticmethod
@@ -280,12 +291,41 @@ class BaseTrainer:
         with trace.span("step/backward"):
             loss.backward()
 
+    # -- the epoch loop ------------------------------------------------------
+
     @staticmethod
     def _next(it):
         """The next batch of a train loader's iterator, timed as
         ``loader/next``."""
         with trace.span("loader/next"):
             return next(it)
+
+    def _batches(self, steps: int, *loaders):
+        """``steps`` tuples of one batch of each loader, taken in turn
+        through :meth:`_next` (the labeled batch before the unlabeled
+        one)."""
+        its = [iter(dl) for dl in loaders]
+        for _ in range(steps):
+            yield tuple(self._next(it) for it in its)
+
+    def _run_steps(self, batches: Iterable[tuple],
+                   step: Callable[..., torch.Tensor],
+                   batch_size: int) -> AverageMeter:
+        """One epoch, inside ``trace.epoch()``: for each ``batch`` (taken
+        at the ``for``, outside the step) the span ``train/step`` runs
+        ``step(*batch)``, which returns the step's loss. Each loss is read
+        two steps late, through its own event (:meth:`_defer`), so the host
+        prepares the next step while the card still runs the two before
+        it; the epoch end reads the rest. Returns the meter of the losses,
+        ``batch_size`` rows each."""
+        meter, pending = AverageMeter(), []
+        with trace.epoch():
+            for batch in batches:
+                with trace.span("train/step"):
+                    self._defer(pending, step(*batch))
+                    self._drain_pending(pending, meter, batch_size)
+            self._drain_pending(pending, meter, batch_size, keep=0)
+        return meter
 
     @staticmethod
     def _defer(pending: list, loss: torch.Tensor) -> None:
@@ -348,10 +388,7 @@ class BaseTrainer:
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             out = model(x.permute(0, 3, 1, 2))
-        t = torch.as_tensor(targets).to(self.device, torch.long,
-                                        non_blocking=True)
-        m = torch.as_tensor(mask).to(self.device, torch.float32,
-                                     non_blocking=True)
+        t, m = self._to_device(targets), self._to_device(mask, torch.float32)
         ce, probs = self._eval_loss_probs(out, t)
         return torch.sum(ce * m), torch.sum(m), probs
 

@@ -52,7 +52,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from endoscopy_tpu_torch.aug.views import labeled_draws, labeled_train_view
+from endoscopy_tpu_torch.aug.views import (labeled_draws, labeled_train_view,
+                                           rows_on_device)
 from endoscopy_tpu_torch.losses import ce_loss, triplet_loss
 from endoscopy_tpu_torch.models.heads import KEEP
 from endoscopy_tpu_torch.optim import build_optimizer, set_lr
@@ -121,42 +122,31 @@ class EZBM(BaseTrainer):
         """One stage-1 step from the canonical uint8 ``[A; P; N]`` batch
         (this rank's anchors, positives and negatives in the global one)."""
         with trace.span("step/views"):
-            with trace.span("views/copy_in"):
-                x = torch.as_tensor(x3_u8).to(self.device, non_blocking=True)
+            x = rows_on_device(x3_u8, self.device)
             n = self.group.world * x.shape[0]
             draws = self._rank_draws(labeled_draws(self.generator, n),
                                      *(n // 3,) * 3)
             view = labeled_train_view(x, self.img_size, self.dtype,
                                       device=self.device, **draws)
-        t = torch.as_tensor(targets).to(self.device, torch.long,
-                                        non_blocking=True)
-        return self._stage1_core(view, t, weights)
+        return self._stage1_core(view, self._to_device(targets), weights)
 
     def train_one_stage_1(self, epoch: int) -> AverageMeter:
-        """``n_iter_per_epoch`` triplet steps; the memory is rebuilt from
-        this epoch's anchors. The losses are read two steps late
-        (``_defer``)."""
-        with trace.epoch():
-            summary_loss = AverageMeter()
-            weights = self.class_weights
-            if weights is None:
-                weights = torch.ones(int(self.config.MODEL.NUM_CLASSES),
-                                     device=self.device)
-            self.mem_features, self.mem_targets = [], []
-            it = iter(self.train_dl)
-            bs = int(self.config.DATA.BATCH_SIZE)
-            pending = []
-            for _ in range(self.n_iter_per_epoch):
-                batch_u8, targets = self._next(it)
-                with trace.span("train/step"):
-                    x3 = self._build_triplet_batch(batch_u8, targets)
-                    loss, anchor_fts = self._stage1_step(x3, targets,
-                                                         weights)
-                    self._defer(pending, loss)
-                    self.mem_features.append(anchor_fts)
-                    self.mem_targets.append(np.asarray(targets))
-                    self._drain_pending(pending, summary_loss, bs)
-            self._drain_pending(pending, summary_loss, bs, keep=0)
+        """``n_iter_per_epoch`` triplet steps (``BaseTrainer._run_steps``);
+        the memory is rebuilt from this epoch's anchors."""
+        weights = self._step_weights()
+        self.mem_features, self.mem_targets = [], []
+
+        def step(labeled):
+            batch_u8, targets = labeled
+            x3 = self._build_triplet_batch(batch_u8, targets)
+            loss, anchor_fts = self._stage1_step(x3, targets, weights)
+            self.mem_features.append(anchor_fts)
+            self.mem_targets.append(np.asarray(targets))
+            return loss
+
+        summary_loss = self._run_steps(
+            self._batches(self.n_iter_per_epoch, self.train_dl), step,
+            int(self.config.DATA.BATCH_SIZE))
         if in_group():
             self._gather_memory()
         return summary_loss
@@ -262,35 +252,27 @@ class EZBM(BaseTrainer):
         self._opt2_count = 0
 
     def train_one_stage_2(self, epoch: int) -> AverageMeter:
-        """Stage-2 steps over this epoch's memory; the pairs drawn on the
-        host for the global batch, this rank's rows gathered on the
-        device."""
-        summary_loss = AverageMeter()
+        """Stage-2 steps over this epoch's memory (``BaseTrainer.
+        _run_steps``); each step draws its pairs on the host for the global
+        batch and gathers this rank's rows on the device."""
         feats = torch.cat(self.mem_features)
         targets = np.concatenate(self.mem_targets)
         bs2 = int(self.config.DATA.BATCH_SIZE) * int(self.config.DATA.MU)
         num_steps = max(len(targets) // bs2, 1)
         rng = np.random.default_rng(
             int(self.config.TRAIN.get("SEED", 42)) + epoch)
+        dev = self._to_device
 
-        def dev(a, dtype=torch.long):
-            return torch.as_tensor(a).to(self.device, dtype, non_blocking=True)
+        def step():
+            idx, dual = (self._own_rows(a) for a in
+                         self._sample_stage2_batch(targets, bs2, rng))
+            y, yd = targets[idx], targets[dual]
+            lam = self._stage2_lam(y, yd)
+            return self._stage2_core(feats[dev(idx)], dev(y),
+                                     feats[dev(dual)], dev(yd),
+                                     dev(lam, torch.float32))
 
-        pending = []
-        with trace.epoch():
-            for _ in range(num_steps):
-                with trace.span("train/step"):
-                    idx, dual = (self._own_rows(a) for a in
-                                 self._sample_stage2_batch(targets, bs2, rng))
-                    y, yd = targets[idx], targets[dual]
-                    lam = self._stage2_lam(y, yd)
-                    loss = self._stage2_core(feats[dev(idx)], dev(y),
-                                             feats[dev(dual)], dev(yd),
-                                             dev(lam, torch.float32))
-                    self._defer(pending, loss)
-                    self._drain_pending(pending, summary_loss, bs2)
-            self._drain_pending(pending, summary_loss, bs2, keep=0)
-        return summary_loss
+        return self._run_steps([()] * num_steps, step, bs2)
 
     # -- fit ------------------------------------------------------------------
 

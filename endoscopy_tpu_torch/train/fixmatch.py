@@ -30,7 +30,8 @@ import torch
 from endoscopy_tpu_torch.aug.views import (fixmatch_draws, fixmatch_views,
                                            labeled_draws, labeled_train_view)
 from endoscopy_tpu_torch.losses import ce_loss, consistency_loss
-from endoscopy_tpu_torch.train.common import BaseTrainer, model_logits
+from endoscopy_tpu_torch.models.heads import model_logits
+from endoscopy_tpu_torch.train.common import BaseTrainer
 from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
@@ -112,8 +113,7 @@ class FixMatch(BaseTrainer):
         accum = self.grad_accum
         x = torch.as_tensor(x_lb_u8)
         u = torch.as_tensor(u_canon_u8)
-        t = torch.as_tensor(targets).to(self.device, torch.long,
-                                        non_blocking=True)
+        t = self._to_device(targets)
         if x.shape[0] % accum or u.shape[0] % accum:
             raise ValueError(f"TRAIN.GRAD_ACCUM={accum} does not divide the "
                              f"batches ({x.shape[0]} labeled, {u.shape[0]} "
@@ -127,26 +127,9 @@ class FixMatch(BaseTrainer):
         return self._train_micro(micro(), weights)
 
     def train_one(self, epoch: int) -> AverageMeter:
-        """``TRAIN.EVAL_STEP`` steps. Each step's loss is read two steps
-        late, through its own event (``_defer``), so the host prepares the
-        next step while the card still runs the two before it."""
-        with trace.epoch():
-            summary_loss = AverageMeter()
-            weights = self.class_weights
-            if weights is None:
-                weights = torch.ones(int(self.config.MODEL.NUM_CLASSES),
-                                     device=self.device)
-            labeled_iter = iter(self.train_dl[0])
-            unlabeled_iter = iter(self.train_dl[1])
-            bs = int(self.config.DATA.BATCH_SIZE)
-            pending = []
-            for _ in range(int(self.config.TRAIN.EVAL_STEP)):
-                x_lb, targets = self._next(labeled_iter)
-                u_canon, _ = self._next(unlabeled_iter)
-                with trace.span("train/step"):
-                    loss, _ = self._train_step(x_lb, targets, u_canon,
-                                               weights)
-                    self._defer(pending, loss)
-                    self._drain_pending(pending, summary_loss, bs)
-            self._drain_pending(pending, summary_loss, bs, keep=0)
-        return summary_loss
+        """``TRAIN.EVAL_STEP`` steps (``BaseTrainer._run_steps``)."""
+        weights = self._step_weights()
+        return self._run_steps(
+            self._batches(int(self.config.TRAIN.EVAL_STEP), *self.train_dl),
+            lambda lb, ul: self._train_step(*lb, ul[0], weights)[0],
+            int(self.config.DATA.BATCH_SIZE))

@@ -91,9 +91,7 @@ class SemiFormer(FixMatch):
             x = labeled_train_view(x_lb_u8, self.img_size, self.dtype,
                                    device=self.device,
                                    **self._rank_draws(draws))
-        t = torch.as_tensor(targets).to(self.device, torch.long,
-                                        non_blocking=True)
-        return self._warmup_core(x, t, weights)
+        return self._warmup_core(x, self._to_device(targets), weights)
 
     def _forward_backward(self, x_lb, u_weak, u_strong, targets,
                           weights) -> torch.Tensor:
@@ -122,25 +120,12 @@ class SemiFormer(FixMatch):
 
     def train_one(self, epoch: int) -> AverageMeter:
         """A warmup sweep of the labeled set before ``EVAL_STEP_SUP``, else
-        ``EVAL_STEP`` FixMatch-phase steps; each step's loss is read two
-        steps late, through its own event (``_defer``)."""
-        with trace.epoch():
-            if epoch >= self.eval_step_sup:
-                return super().train_one(epoch)
-            summary_loss = AverageMeter()
-            weights = self.class_weights
-            if weights is None:
-                weights = torch.ones(int(self.config.MODEL.NUM_CLASSES),
-                                     device=self.device)
-            labeled = self.train_dl[0]
-            bs = int(self.config.DATA.BATCH_SIZE)
-            it = iter(labeled)
-            pending = []
-            for _ in range(sweep_steps(labeled, bs, self.device)):
-                x_lb, targets = self._next(it)
-                with trace.span("train/step"):
-                    self._defer(pending,
-                                self._warmup_step(x_lb, targets, weights))
-                    self._drain_pending(pending, summary_loss, bs)
-            self._drain_pending(pending, summary_loss, bs, keep=0)
-        return summary_loss
+        ``EVAL_STEP`` FixMatch-phase steps (``BaseTrainer._run_steps``)."""
+        if epoch >= self.eval_step_sup:
+            return super().train_one(epoch)
+        weights = self._step_weights()
+        labeled = self.train_dl[0]
+        bs = int(self.config.DATA.BATCH_SIZE)
+        return self._run_steps(
+            self._batches(sweep_steps(labeled, bs, self.device), labeled),
+            lambda lb: self._warmup_step(*lb, weights), bs)

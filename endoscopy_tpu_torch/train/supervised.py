@@ -47,17 +47,17 @@ import numpy as np
 import torch
 
 from endoscopy_tpu_torch.aug.mixup import mixup_cutmix
-from endoscopy_tpu_torch.aug.views import (_u8_on_device, labeled_draws,
-                                           labeled_train_view,
+from endoscopy_tpu_torch.aug.views import (labeled_draws, labeled_train_view,
                                            reproduce_draws,
-                                           reproduce_train_view)
+                                           reproduce_train_view,
+                                           rows_on_device)
 from endoscopy_tpu_torch.config.loader import is_none
 from endoscopy_tpu_torch.losses import (angular_penalty_loss, ce_loss,
                                         rdw_weights, soft_ce_loss,
                                         triplet_loss)
+from endoscopy_tpu_torch.models.heads import model_logits
 from endoscopy_tpu_torch.parallel import batch_mean
-from endoscopy_tpu_torch.train.common import (BaseTrainer, model_logits,
-                                              sweep_steps)
+from endoscopy_tpu_torch.train.common import BaseTrainer, sweep_steps
 from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
 
@@ -180,9 +180,8 @@ class SupLearning(BaseTrainer):
         the span ``step/views``."""
         accum = self.grad_accum
         with trace.span("step/views"):
-            x = _u8_on_device(batch_u8, self.device)
-        t = torch.as_tensor(targets).to(self.device, torch.long,
-                                        non_blocking=True)
+            x = rows_on_device(batch_u8, self.device)
+        t = self._to_device(targets)
         if t.shape[0] % accum:
             raise ValueError(f"TRAIN.GRAD_ACCUM={accum} does not divide the "
                              f"batch of {t.shape[0]}")
@@ -234,34 +233,29 @@ class SupLearning(BaseTrainer):
     def _epoch_weights(self, epoch: int) -> torch.Tensor:
         """The class weights of this epoch: RDW's when ``TRAIN_RULE`` is
         exactly ``'RDW'`` (``'DRW'`` never matches, as in the reference),
-        else the balanced ones, else ones."""
+        else ``_step_weights``."""
         if self.config.TRAIN.get("TRAIN_RULE") == "RDW" and self.cls_num_list:
             return torch.as_tensor(rdw_weights(epoch, self.cls_num_list),
                                    dtype=torch.float32, device=self.device)
-        if self.class_weights is not None:
-            return self.class_weights
-        return torch.ones(int(self.config.MODEL.NUM_CLASSES),
-                          device=self.device)
+        return self._step_weights()
 
     def train_one(self, epoch: int) -> AverageMeter:
-        """``n_iter_per_epoch`` steps; the losses are read two steps late
-        (``_defer``), the triplet distances once at the end."""
-        with trace.epoch():
-            summary_loss = AverageMeter()
-            weights = self._epoch_weights(epoch)
-            it = iter(self.train_dl)
-            bs = int(self.config.DATA.BATCH_SIZE)
-            pending, aux = [], ()
-            for _ in range(self.n_iter_per_epoch):
-                batch_u8, targets = self._next(it)
-                with trace.span("train/step"):
-                    if self.is_triplet:
-                        batch_u8 = self._build_triplet_batch(batch_u8,
-                                                             targets)
-                    loss, aux = self._train_step(batch_u8, targets, weights)
-                    self._defer(pending, loss)
-                    self._drain_pending(pending, summary_loss, bs)
-            self._drain_pending(pending, summary_loss, bs, keep=0)
+        """``n_iter_per_epoch`` steps (``BaseTrainer._run_steps``); the
+        triplet distances of the last step are read once, at the end."""
+        weights = self._epoch_weights(epoch)
+        aux = ()
+
+        def step(labeled):
+            nonlocal aux
+            batch_u8, targets = labeled
+            if self.is_triplet:
+                batch_u8 = self._build_triplet_batch(batch_u8, targets)
+            loss, aux = self._train_step(batch_u8, targets, weights)
+            return loss
+
+        summary_loss = self._run_steps(
+            self._batches(self.n_iter_per_epoch, self.train_dl), step,
+            int(self.config.DATA.BATCH_SIZE))
         if self.is_triplet and aux:
             self._last_triplet_dist = tuple(float(a) for a in aux)
             if epoch % 5 == 0:

@@ -302,7 +302,7 @@ def _deferred_losses_wait_only_for_their_steps():
 
 def _staged_rows_survive_reuse():
     """Eight host batches of two shapes staged back to back through
-    ``views._u8_on_device`` while about half a second of work keeps the
+    ``views.rows_on_device`` while about half a second of work keeps the
     card busy, each numpy array overwritten as soon as the call returns,
     and one more from a second thread at the same time, then an eval
     view: the calls return before the card reaches them, every card batch
@@ -312,7 +312,7 @@ def _staged_rows_survive_reuse():
     uncounted."""
     shapes = ((32, 64, 64, 3), (7, 40, 40, 3))
     for shape in shapes:  # the host allocator's first blocks, made idle
-        views._u8_on_device(np.zeros(shape, np.uint8), "cuda")
+        views.rows_on_device(np.zeros(shape, np.uint8), "cuda")
     views.eval_view(np.zeros(shapes[0], np.uint8), 56, device="cuda")
     torch.cuda.synchronize()
     other = {}
@@ -321,7 +321,7 @@ def _staged_rows_survive_reuse():
         host = np.random.default_rng(1).integers(0, 256, shapes[0],
                                                  dtype=np.uint8)
         other["want"] = host.copy()
-        other["got"] = views._u8_on_device(host, "cuda")
+        other["got"] = views.rows_on_device(host, "cuda")
         host[...] = 255 - host
         other["stream"] = views._copy_stream(torch.device("cuda"))
 
@@ -334,7 +334,7 @@ def _staged_rows_survive_reuse():
     for i in range(8):
         host = rng.integers(0, 256, shapes[i % 2], dtype=np.uint8)
         wanted.append(host.copy())
-        staged.append(views._u8_on_device(host, "cuda"))
+        staged.append(views.rows_on_device(host, "cuda"))
         host[...] = 255 - host  # the caller reuses its array at once
     host = rng.integers(0, 256, shapes[0], dtype=np.uint8)
     view = views.eval_view(host, 56, device="cuda")
@@ -350,7 +350,7 @@ def _staged_rows_survive_reuse():
     assert other["stream"] != views._copy_stream(torch.device("cuda"))
     assert trace.counter("views/staged") - before == 10
     card = staged[0]
-    back = views._u8_on_device(card, "cuda")
+    back = views.rows_on_device(card, "cuda")
     assert (back.untyped_storage().data_ptr()
             == card.untyped_storage().data_ptr())
     assert trace.counter("views/staged") - before == 10

@@ -1,8 +1,12 @@
 """The port's tracer (``endoscopy_tpu_torch/utils/trace.py``): self time
 under nesting, the threads' totals, the epoch records, the profiler's
-annotations, the spans of a tiny FixMatch epoch and its run log, the
-epoch's deferred losses, and its views' rows left on the CPU."""
+annotations, the spans of a tiny FixMatch epoch and its run log, every
+trainer loop's deferred losses (``BaseTrainer._run_steps``), the copy-in
+of the supervised and EZBM steps, and the views' rows left on the
+CPU."""
 
+import contextlib
+import functools
 import json
 import sys
 import tempfile
@@ -16,11 +20,17 @@ import pytest
 import torch
 
 from endoscopy_tpu_torch.config.loader import default_config
+from endoscopy_tpu_torch.data.manifest import Manifest
 from endoscopy_tpu_torch.models import build_model
+from endoscopy_tpu_torch.train import ezbm as ezbm_mod
+from endoscopy_tpu_torch.train import supervised as sup_mod
+from endoscopy_tpu_torch.train.comatch import CoMatch
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
+from endoscopy_tpu_torch.train.semiformer import SemiFormer
 from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.logging import MetricLogger
 from endoscopy_tpu_torch.utils.meters import AverageMeter
+from torch_port_checks import comatch, ezbm, semiformer, supervised, train
 
 
 def check_self_time_is_the_span_less_its_children():
@@ -171,49 +181,179 @@ def check_fixmatch_epoch_records_every_step_span():
     assert line["throughput/images_per_sec"] > 0
 
 
-def check_fixmatch_epoch_reads_every_loss_in_step_order():
-    """The meter of a tiny FixMatch epoch holds the losses its steps
-    computed, in step order; each is read once (``drain/fetches``), none
-    waits for an event on the CPU (``drain/waited`` unset), and at most
-    two stay pending after any step."""
-    steps = 5
-    trainer = _tiny_fixmatch(steps=steps)
-    losses, left = [], []
-    step, drain = trainer._train_step, trainer._drain_pending
+STEPS = 3  # steps of each loop's epoch
+LOOP_B = 4  # rows of a labeled batch
 
-    def recorded_step(*args):
-        loss, aux = step(*args)
-        losses.append(loss.detach().clone())
-        return loss, aux
 
-    def watched_drain(pending, summary_loss, batch_size, keep=2):
-        assert all(host.device.type == "cpu" and arrived is None
-                   for host, arrived in pending)
-        drain(pending, summary_loss, batch_size, keep)
-        left.append(len(pending))
+class _Rows:
+    """A train loader of random canonical rows over a manifest of
+    ``STEPS`` batches: ``(uint8 rows, targets)`` batches, and ``sample``
+    and ``rng`` for the triplet batch."""
 
-    read = []
+    def __init__(self, b: int, classes: int, side: int):
+        n = STEPS * LOOP_B
+        self.manifest = Manifest(paths=[f"{i}.png" for i in range(n)],
+                                 targets=np.arange(n) % classes)
+        self.rng = np.random.default_rng(0)
+        self.b, self.side = b, side
+
+    def sample(self, idx) -> np.ndarray:
+        return self.rng.integers(0, 256, (len(idx), self.side, self.side, 3),
+                                 dtype=np.uint8)
+
+    def __iter__(self):
+        while True:
+            idx = self.rng.integers(0, len(self.manifest), self.b)
+            yield self.sample(idx), self.manifest.targets[idx]
+
+
+def _loop_trainer(cls, over, *extra):
+    """A ``cls`` on ``over``'s tiny configuration at ``LOOP_B`` rows a batch
+    and ``MU`` 1, from torch's fresh weights, fed :class:`_Rows` (a labeled
+    and an unlabeled loader for the semi-supervised trainers); ``extra``:
+    ``get_config``'s arguments before the labeled targets."""
+    cfg = default_config(over)
+    cfg.DATA.update(BATCH_SIZE=LOOP_B, MU=1)
+    cfg.TRAIN.EVAL_STEP = STEPS
+    classes = int(cfg.MODEL.NUM_CLASSES)
+    side = int(int(cfg.DATA.IMG_SIZE) * float(cfg.DATA.CANONICAL_SCALE))
+    torch.manual_seed(0)
+    trainer = cls(build_model(cfg), "SGD", device="cpu")
+    labeled = _Rows(LOOP_B, classes, side)
+    trainer.get_dataloader((labeled, _Rows(LOOP_B, classes, side))
+                           if issubclass(cls, (FixMatch, CoMatch))
+                           else labeled, None)
+    trainer.get_config(cfg, *extra, labeled_targets=labeled.manifest.targets)
+    return trainer
+
+
+def _loops():
+    """``(name, trainer, run, rows a loss, the module whose rows_on_device
+    the step calls)`` of every trainer loop, in the order they run."""
+    fm = _loop_trainer(FixMatch, train.OVERRIDES)
+    yield "fixmatch", fm, lambda: fm.train_one(1), LOOP_B, None
+    sf = _loop_trainer(SemiFormer, semiformer._overrides())
+    yield "semiformer warmup", sf, lambda: sf.train_one(0), LOOP_B, None
+    yield "semiformer fixmatch", sf, lambda: sf.train_one(1), LOOP_B, None
+    # queue_batch 1: the gate opens at the third step of epoch 0, and each
+    # step's rows fill the queue
+    co = _loop_trainer(type("CoMatchQ", (CoMatch,), {"queue_batch": 1}),
+                       comatch._overrides())
+    yield "comatch", co, lambda: co.train_one(0), LOOP_B, None
+    for triplet in (False, True):
+        st = _loop_trainer(sup_mod.SupLearning,
+                           supervised._sup_overrides(triplet), ezbm.CLS_NUM)
+        yield (f"supervised {'triplet' if triplet else 'plain'}", st,
+               lambda st=st: st.train_one(1), LOOP_B, sup_mod)
+    ez = _loop_trainer(ezbm_mod.EZBM, ezbm._overrides(), ezbm.CLS_NUM)
+    yield "ezbm stage 1", ez, lambda: ez.train_one_stage_1(1), LOOP_B, ezbm_mod
+
+    def stage_2():
+        ez._new_stage2_optimizer()
+        return ez.train_one_stage_2(1)
+    yield "ezbm stage 2", ez, stage_2, LOOP_B, None
+
+
+@functools.cache
+def _loop_runs() -> dict:
+    """name → what one tiny epoch of each loop did: the losses its steps
+    handed to ``_defer`` (``deferred``), the meter's reads, the pending
+    count after each drain (``left``), the meter, the epoch's record, the
+    rows the step handed to ``rows_on_device`` (``copied``) and the rows a
+    loss, and CoMatch's gates."""
+    runs = {}
     update = AverageMeter.update
+    for name, trainer, run, rows, module in _loops():
+        got = {"deferred": [], "reads": [], "left": [], "copied": [],
+               "rows": rows}
+        defer, drain = type(trainer)._defer, type(trainer)._drain_pending
 
-    def recorded_update(meter, val, n=1):
-        read.append((val, n))
-        update(meter, val, n)
+        def recorded_defer(pending, loss):
+            got["deferred"].append(float(loss))
+            defer(pending, loss)
 
-    trainer._train_step = recorded_step
-    trainer._drain_pending = watched_drain
-    with mock.patch.object(AverageMeter, "update", recorded_update):
-        meter = trainer.train_one(1)
-    assert len(losses) == steps
-    assert read == [(float(loss), 4) for loss in losses]
-    expected = AverageMeter()
-    for loss in losses:
-        expected.update(float(loss), 4)
-    assert (meter.sum, meter.count) == (expected.sum, expected.count)
-    assert meter.count == steps * 4
-    assert left == [1, 2, 2, 2, 2, 0]  # after each step, then the epoch end
-    counters = trace.last_epoch()["counters"]
-    assert counters["drain/fetches"] == steps
-    assert "drain/waited" not in counters
+        def watched_drain(pending, summary_loss, batch_size, keep=2):
+            assert all(host.device.type == "cpu" and arrived is None
+                       for host, arrived in pending)
+            drain(pending, summary_loss, batch_size, keep)
+            got["left"].append(len(pending))
+
+        def recorded_update(meter, val, n=1):
+            got["reads"].append((val, n))
+            update(meter, val, n)
+
+        trainer._defer, trainer._drain_pending = recorded_defer, watched_drain
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(AverageMeter, "update",
+                                                  recorded_update))
+            if module is not None:
+                real = module.rows_on_device
+
+                def copy_in(batch_u8, device, real=real):
+                    got["copied"].append(type(batch_u8))
+                    return real(batch_u8, device)
+                stack.enter_context(mock.patch.object(
+                    module, "rows_on_device", copy_in))
+            if name == "comatch":
+                step = trainer._train_step
+                got["gates"] = []
+
+                def gated(*args, step=step):
+                    got["gates"].append(args[4])
+                    return step(*args)
+                trainer._train_step = gated
+            got["meter"] = run()
+        got["record"] = trace.last_epoch()
+        runs[name] = got
+    return runs
+
+
+def check_every_loop_reads_every_loss_once_in_step_order():
+    """One tiny epoch of each trainer loop (FixMatch, SemiFormer's warmup
+    and FixMatch phase, CoMatch, the supervised trainer plain and
+    triplet, EZBM's stages 1 and 2), all through
+    ``BaseTrainer._run_steps``: the meter reads each step's loss once, in
+    step order; at most two stay pending after any step and none after
+    the epoch; ``train/step`` and ``drain/fetches`` count the steps,
+    ``loader/next`` a batch of each loader a step, and no drain waits for
+    an event on the CPU. CoMatch's gate opens after ``queue_batch``."""
+    runs = _loop_runs()
+    assert list(runs) == ["fixmatch", "semiformer warmup",
+                          "semiformer fixmatch", "comatch",
+                          "supervised plain", "supervised triplet",
+                          "ezbm stage 1", "ezbm stage 2"]
+    loaders = {"fixmatch": 2, "semiformer fixmatch": 2, "comatch": 2,
+               "ezbm stage 2": 0}
+    for name, got in runs.items():
+        deferred, rows = got["deferred"], got["rows"]
+        assert len(deferred) == STEPS, name
+        assert got["reads"] == [(loss, rows) for loss in deferred], name
+        assert np.all(np.isfinite(deferred)), name
+        assert got["meter"].count == STEPS * rows, name
+        assert got["left"] == [1, 2, 2, 0], name
+        spans, counters = got["record"]["spans"], got["record"]["counters"]
+        assert spans["train/step"][2] == STEPS, name
+        assert spans["train/drain"][2] == 1, name
+        assert spans.get("loader/next", (0, 0, 0))[2] == STEPS * loaders.get(
+            name, 1), name
+        assert counters["drain/fetches"] == STEPS, name
+        assert "drain/waited" not in counters, name
+    assert runs["comatch"]["gates"] == [False, False, True]
+
+
+def check_supervised_and_ezbm_steps_copy_rows_in_through_the_views():
+    """The supervised steps and EZBM's stage 1 hand their host rows to
+    ``aug/views.py::rows_on_device`` once a step (their view's own copy-in
+    finds the rows in place: two ``views/copy_in`` spans a step a
+    microbatch), and on the CPU nothing is staged (``views/staged``
+    unset)."""
+    runs = _loop_runs()
+    for name in ("supervised plain", "supervised triplet", "ezbm stage 1"):
+        got = runs[name]
+        assert got["copied"] == [np.ndarray] * STEPS, name
+        rec = got["record"]
+        assert rec["spans"]["views/copy_in"][2] == 2 * STEPS, name
+        assert "views/staged" not in rec["counters"], name
 
 
 def check_fixmatch_epoch_on_the_cpu_stages_nothing():
@@ -234,7 +374,7 @@ def check_fixmatch_epoch_on_the_cpu_stages_nothing():
 
     def both_views(x_lb_u8, u_u8):
         start = g.get_state()
-        with mock.patch.object(views, "_u8_on_device", plain_copy):
+        with mock.patch.object(views, "rows_on_device", plain_copy):
             want = take_views(x_lb_u8, u_u8)
         g.set_state(start)
         got = take_views(x_lb_u8, u_u8)
@@ -246,7 +386,7 @@ def check_fixmatch_epoch_on_the_cpu_stages_nothing():
     assert compared == [True] * 3
     assert "views/staged" not in trace.last_epoch()["counters"]
     rows = np.zeros((2, 8, 8, 3), np.uint8)
-    assert views._u8_on_device(rows, "cpu").data_ptr() == rows.ctypes.data
+    assert views.rows_on_device(rows, "cpu").data_ptr() == rows.ctypes.data
 
 
 def check_swin_window_attention_span_and_logit_bytes():

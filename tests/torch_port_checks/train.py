@@ -41,11 +41,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import orbax.checkpoint as ocp
 import pytest
 import torch
 from torch import nn
 
 from endoscopy_tpu.aug import views as jviews
+from endoscopy_tpu.ckpt import orbax_io as jax_orbax_io
 from endoscopy_tpu.config.loader import default_config as jax_default_config
 from endoscopy_tpu.config.loader import get_config as jax_get_config
 from endoscopy_tpu.losses import classification as jcls
@@ -72,6 +74,16 @@ from endoscopy_tpu_torch.ssl_state.ema import ema_init, ema_tensors, ema_update
 from endoscopy_tpu_torch.train.fixmatch import FixMatch
 
 ROOT = Path(__file__).resolve().parents[2]
+
+# orbax (0.11) makes a save's directories on a background thread by default,
+# and the JAX package's ``save_checkpoint`` opens ``meta.json`` in the
+# checkpoint's directory as soon as ``save`` returns: on a loaded machine the
+# open can come first (FileNotFoundError). The JAX package's checkpointer in
+# the checks makes them before ``save`` returns.
+jax_orbax_io._checkpointer()  # the JAX package's exit wait, registered once
+jax_orbax_io._CKPTR = ocp.StandardCheckpointer(
+    async_options=ocp.AsyncOptions(create_directories_asynchronously=False))
+
 IMG, CANON = 32, int(32 * 1.2)
 B, MU, NUM_CLASSES = 8, 2, 4
 LABELED = np.array([0, 0, 0, 1, 1, 2, 3, 3, 3, 3])  # the dataset's labels

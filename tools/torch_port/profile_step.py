@@ -46,9 +46,11 @@ and the decode's), and prints the device's busy time as the union of the
 intervals of every kernel and copy on any stream, the kernels with the
 most device time (nvJPEG's and the resize kernel among them), and the
 host's CPU time a step: the main thread's and the other threads' (the
-loaders' prefetch threads and the core's readers). Its step is
-``FixMatch.train_one``'s loop body, spans included: ``loader/next``, then
-``train/step`` with the drain.
+loaders' prefetch threads and the core's readers). Each of its windows
+(the warm-up, the timed and the profiled steps) is one
+``FixMatch.train_one`` of that many steps, as ``fit`` runs an epoch: the
+loaders' iterators start anew and the window ends with the drain of its
+last losses.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ def build(path: str, seed: int = SEED):
                        labeled_targets=path_c.labeled_targets(config, seed))
     x, t, u = (torch.from_numpy(a).cuda()
                for a in path_c.canonical_batches(config, seed, 1)[0])
-    w = trainer.class_weights
+    w = trainer._step_weights()
     extra = (True,) if path == "F" else ()  # CoMatch's smoothing gate
     return trainer, lambda: trainer._train_step(x, t, u, w, *extra)
 
@@ -240,41 +242,30 @@ def print_idle_by_span(prof, steps: int) -> None:
 
 
 def build_o(seed: int = SEED):
-    """(one ``fit`` step, close) for path O: the generator's files made on
-    the card, the trainer as ``run_config`` prepares it."""
+    """(``fit``'s steps, close) for path O: the generator's files made on
+    the card, the trainer as ``run_config`` prepares it; ``steps(n)`` is
+    one ``train_one`` of ``n`` steps."""
     import shutil
 
     from endoscopy_tpu_torch.cli import learn
     from endoscopy_tpu_torch.data.synthetic import make_synthetic_dataset
-    from endoscopy_tpu_torch.utils.meters import AverageMeter
 
     root = ROOT / "build" / "profile_step" / "synth"
     shutil.rmtree(root, ignore_errors=True)
     make_synthetic_dataset(str(root), seed=seed, **path_o.GENERATOR)
     torch.manual_seed(seed)
     trainer = learn.prepare_trainer(path_o.config(str(root)), device="cuda")
-    weights = trainer.class_weights
-    if weights is None:
-        weights = torch.ones(int(trainer.config.MODEL.NUM_CLASSES),
-                             device="cuda")
-    its = [iter(dl) for dl in trainer.train_dl]
-    pending, meter = [], AverageMeter()
-    bs = int(trainer.config.DATA.BATCH_SIZE)
 
-    def step():  # FixMatch.train_one's loop body
-        x, targets = trainer._next(its[0])
-        u, _ = trainer._next(its[1])
-        with trace.span("train/step"):
-            loss, _ = trainer._train_step(x, targets, u, weights)
-            trainer._defer(pending, loss)
-            trainer._drain_pending(pending, meter, bs)
+    def steps(n: int) -> None:
+        trainer.config.TRAIN.EVAL_STEP = n
+        trainer.train_one(1)
 
     def close():
         for dl in (*trainer.train_dl, trainer.valid_dl):
             dl.close()
         shutil.rmtree(root, ignore_errors=True)
 
-    return step, close
+    return steps, close
 
 
 def _union_ms(intervals) -> float:
@@ -293,17 +284,15 @@ def _union_ms(intervals) -> float:
 def profile_o(args, card: str) -> int:
     """Path O: time, then profile, ``args.steps`` ``fit`` steps on JPEG
     files, the loaders running."""
-    step, close = build_o()
+    steps, close = build_o()
     try:
-        for _ in range(WARMUP):
-            step()
+        steps(WARMUP)
         torch.cuda.synchronize()
         n = args.steps
         before = trace.totals()
         t0, c0 = time.perf_counter(), time.process_time()
         m0 = time.thread_time()
-        for _ in range(n):
-            step()
+        steps(n)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / n
         main_ms = (time.thread_time() - m0) * 1e3 / n
@@ -314,8 +303,7 @@ def profile_o(args, card: str) -> int:
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            for _ in range(n):
-                step()
+            steps(n)
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
     finally:
