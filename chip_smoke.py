@@ -249,7 +249,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    path E3's method at 224 px (Swin's stage sides must be even: 112 px
    fails in both packages), B=2, seeds 0-2. L2: 3 warm-up and 8 timed
    steps: step ms, images/s, the FLOP share (the window attention's two
-   products counted), peak memory. No kernel runs on it.
+   products counted), peak memory; its bf16 window attention takes the
+   window-attention kernel (``ops/window_attention.py``). L3: that kernel
+   alone at the Swin cell's shapes (480 images, the 12 blocks, forward and
+   backward): its ms by CUDA events beside its bytes bound, the plain
+   path's and ``scaled_dot_product_attention``'s (a yardstick); then its
+   output, d(qkv) and bias gradient against the plain path and float64 on
+   stage 1's and a shifted stage-3 block of those shapes and at each
+   stage's shapes at 28 images, failing over ``path_l``'s limits. The
+   RandAugment kernel runs on none of it.
 16. path M: every other registry name this slice ports
    (``path_l.M_NAMES``: the SE, grouped and gated ResNets, DenseNet-121,
    Swin-S, SwinMLP, CoAtNet-0, ViT-LSA) at ``kaggle_supervised_patho``'s
@@ -257,7 +265,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    1e-4 of the largest logit of the CPU's, one warm-up and two timed bf16
    supervised steps (32 images at 224 px) with a finite loss, and the
    artifact through ``load_exported`` equal to a direct eval forward; a
-   line a model with its step ms and peak memory. No kernel runs on it.
+   line a model with its step ms and peak memory. The RandAugment kernel
+   runs on none of it; Swin's and Swin-S's bf16 steps take the
+   window-attention kernel.
 17. path N: data parallelism (``endoscopy_tpu_torch/parallel/``), each
    part in ``torchrun`` subprocesses (``python -m torch.distributed.run
    --standalone``, this script with ``--path-n-worker``); a non-zero exit
@@ -3954,22 +3964,126 @@ def swin_step_matches_cpu(seed: int):
         lambda view: path_e.step_float64(cfg, model, view, t, seed))[0]
 
 
+def window_attention_timed(seed: int, images: int = 480) -> dict:
+    """Path L3: the window-attention kernel alone at the Swin cell's shapes
+    (``images`` images, Swin-T's 12 blocks at 224 px, the forward and the
+    backward of each) by CUDA events, beside its bound (the bytes of
+    ``window_attention.bytes_moved`` at 3.35 TB/s), the plain path and
+    ``scaled_dot_product_attention`` with the bias and mask as one bf16
+    float mask (a yardstick the port never calls); then the kernel against
+    the plain path (``path_l.window_attention_errors``) on two of the timed
+    blocks and at each stage's shapes at ``path_l.WA_IMAGES`` images, held
+    to ``path_l.window_attention_faults``'s limits."""
+    import torch
+    import torch.nn.functional as F
+
+    from endoscopy_tpu_torch.ops import window_attention as wa
+    from endoscopy_tpu_torch.utils import trace
+
+    lib = wa.library()
+    info = {"registers": [lib.window_attention_regs(b) for b in (0, 1)],
+            "smem_bytes": [lib.window_attention_smem(b, 49, 1)
+                           for b in (0, 1)]}
+    cases, nbytes = [], 0
+    for side, heads, blocks in path_l.SWIN_T_STAGES:
+        for blk in range(blocks):
+            qkv, bias, mask, dout = path_l.window_attention_case(
+                side, heads, blk % 2 == 1, images, seed + len(cases))
+            m = bias[None] if mask is None else bias[None] + mask[:, None]
+            m = m.to(qkv.dtype).repeat(qkv.shape[0] // m.shape[0], 1, 1, 1)
+            cases.append((qkv.requires_grad_(True), bias.requires_grad_(True),
+                          mask, dout, m))
+            nbytes += wa.bytes_moved(qkv.shape[0], qkv.shape[1], heads)
+
+    def kernel(qkv, bias, mask, m):
+        return wa.window_attention(qkv, bias, mask)
+
+    def plain(qkv, bias, mask, m):
+        return wa.window_attention_plain(qkv, bias, mask)
+
+    def sdpa(qkv, bias, mask, m):
+        bnw, n, _, heads, hd = qkv.shape
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m).transpose(
+            1, 2).reshape(bnw, n, heads * hd)
+
+    def run(fn, grad=True):
+        def step():
+            for qkv, bias, mask, dout, m in cases:
+                if grad:
+                    fn(qkv, bias, mask, m).backward(dout)
+                    qkv.grad = bias.grad = None
+                else:
+                    with torch.no_grad():
+                        fn(qkv, bias, mask, m)
+        return step
+
+    before = trace.counter("window_attention/fused")
+    run(kernel)()
+    torch.cuda.synchronize()
+    fused = trace.counter("window_attention/fused") - before
+    out = {**info, "images": images, "fused_per_pass": fused,
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "ms": cuda_ms(run(kernel), 5),
+           "forward_ms": cuda_ms(run(kernel, False), 5),
+           "plain_ms": cuda_ms(run(plain), 3),
+           "library_ms": cuda_ms(run(sdpa), 3)}
+    out["ms_again"] = cuda_ms(run(kernel), 5)
+    # the timed cases themselves: stage 1's first block and stage 3's
+    # first shifted one, a block walking 8 windows as in the cell
+    out["errors"] = {f"{images}:{key}": path_l.window_attention_errors(
+        *cases[at][:4]) for key, at in (("56", 0), ("14s", 5))}
+    del cases
+    torch.cuda.empty_cache()
+    for side, heads, blocks in path_l.SWIN_T_STAGES:
+        for shifted in (False, True)[:1 + (side > path_l.WINDOW)]:
+            case = path_l.window_attention_case(side, heads, shifted,
+                                                path_l.WA_IMAGES, seed)
+            key = f"{path_l.WA_IMAGES}:{side}{'s' if shifted else ''}"
+            out["errors"][key] = path_l.window_attention_errors(*case)
+    faults = [f"{key} {f}" for key, err in out["errors"].items()
+              for f in path_l.window_attention_faults(err)]
+    print(f"path L3: window attention at {images} images, Swin-T's 12 "
+          f"blocks, forward and backward: kernel {out['ms']:.3f} ms "
+          f"({out['ms_again']:.3f} again; forward alone "
+          f"{out['forward_ms']:.3f}), bound {out['bound_ms']:.3f} ms "
+          f"({nbytes} B at 3.35 TB/s), plain {out['plain_ms']:.3f} ms, "
+          f"scaled_dot_product_attention {out['library_ms']:.3f} ms; "
+          f"{fused} kernel passes; registers {info['registers']}, shared "
+          f"memory {info['smem_bytes']} B (forward, backward)", flush=True)
+    print(f"path L3: kernel vs plain vs float64 (images:side): "
+          f"{json.dumps(out['errors'])}", flush=True)
+    if fused != 24:
+        fail(f"path L3: {fused} kernel passes, not 24")
+    if faults:
+        fail(f"path L3: the kernel off the plain path: {'; '.join(faults)}")
+    return out
+
+
 def phase_swin(seed: int):
-    """Path L: Swin-T in the supervised trainer, L1-L2; no kernel runs on
+    """Path L: Swin-T in the supervised trainer, L1-L2, and the window-
+    attention kernel alone, L3; the RandAugment kernel runs on none of
     it."""
+    from endoscopy_tpu_torch.utils import trace
 
     LAUNCHES.zero()
     out = {"l1": {s: swin_step_matches_cpu(s)
                   for s in range(seed, seed + PART1_SEEDS)}}
     cfg = path_c.train_config(path_l.PATHO_SWIN, TRAIN={"SAVE_CP": "",
                                                         "LOG_DIR": ""})
+    before = trace.counter("window_attention/fused")
     out["l2"] = supervised_timed(cfg, seed, TRIPLET_TIMED_STEPS,
                                  "path L2, kaggle_supervised_patho on Swin-T")
+    out["l2"]["fused"] = trace.counter("window_attention/fused") - before
     out["launches"] = LAUNCHES.value
     print(f"path L: randaugment_mc launches {out['launches']} (no kernel on "
-          "this path)", flush=True)
+          f"this path); L2's window-attention kernel passes "
+          f"{out['l2']['fused']}", flush=True)
     if out["launches"]:
         fail("path L launched the RandAugment kernel")
+    if not out["l2"]["fused"]:
+        fail("path L2's bf16 steps did not take the window-attention kernel")
+    out["l3"] = window_attention_timed(seed)
     return out
 
 
@@ -4023,7 +4137,9 @@ def zoo_model(name: str, seed: int, out_dir: Path):
 
 
 def phase_zoo(seed: int, out_dir: Path):
-    """Path M: every other new registry name; no kernel runs on it."""
+    """Path M: every other new registry name; the RandAugment kernel runs
+    on none of it (Swin's and Swin-S's bf16 steps take the window-attention
+    kernel)."""
     import torch
 
 
@@ -4454,6 +4570,7 @@ def main(argv=None) -> int:
     f2, f3 = rows["F"]["f2"], rows["F"]["f3"]
     g2, g3 = rows["G"]["g2"], rows["G"]["g3"]
     j2, k2, n1 = rows["J"]["j2"], rows["K"]["k2"], rows["N"]["n1"]
+    l3 = rows["L"]["l3"]
 
     def fused(r, side):
         return {"launches_per_step": r["launches_per_step"],
@@ -4533,6 +4650,21 @@ def main(argv=None) -> int:
         "nvjpeg_decode_ms": rows["O2"]["decode_ms"],
         "nvjpeg_backend": rows["O0"]["backend"],
         "decode_calls": rows["O3"]["decode_calls"],
+    }, {
+        "name": "window_attention", "route": "cuda",
+        "source": "endoscopy_tpu_torch/ops/csrc/window_attention.cu",
+        "replaces": None,
+        "replaces_kind": "einsums of the JAX package's Swin "
+                         "(endoscopy_tpu/models/swin.py); no TPU kernel",
+        "ms": l3["ms"], "forward_ms": l3["forward_ms"],
+        "plain_ms": l3["plain_ms"], "bound_ms": l3["bound_ms"],
+        "bound_by": "bytes", "library_ms": l3["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention, "
+                   "bias and mask as one bf16 float mask",
+        "shape": f"{l3['images']} images, Swin-T's 12 blocks, forward and "
+                 "backward",
+        "passes": l3["fused_per_pass"], "l2_passes": rows["L"]["l2"]["fused"],
+        "errors": l3["errors"],
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,9 +35,13 @@ the input at init: a model built for one side refuses another.
 
 Each :class:`WindowAttention` forward runs in the span
 ``model/window_attention`` (the host's enqueue of the bias gather, the
-products, the logits chain, the softmax and the projection) and adds to
-the counter ``swin/window_logit_bytes`` the bytes of the float32 logits it
-materialises, ``B·nW · heads · n² · 4`` (``utils/trace.py``).
+attention and the projection). From the ``qkv`` projection's output to the
+projection's input the attention is ``ops/window_attention.py``: on the
+card in bf16 a hand-written kernel, forward and backward, that keeps each
+window's logits on chip (counter ``window_attention/fused``); elsewhere
+the plain path above, which adds to the counter ``swin/window_logit_bytes``
+the bytes of the float32 logits it materialises, ``B·nW · heads · n² · 4``
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -49,9 +53,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from endoscopy_tpu_torch.models.layers import (attention, norm32,
-                                               truncated_normal, wide)
+from endoscopy_tpu_torch.models.layers import (norm32, truncated_normal,
+                                               wide)
 from endoscopy_tpu_torch.models.resnet import conv2d, dense
+from endoscopy_tpu_torch.ops import window_attention as wa
 from endoscopy_tpu_torch.utils import trace
 
 
@@ -121,24 +126,11 @@ class WindowAttention(nn.Module):
     def _forward(self, x: torch.Tensor, mask) -> torch.Tensor:
         bnw, n, c = x.shape
         heads = self.num_heads
-        hd = c // heads
         bias = self.relative_position_bias_table[
             self.relative_position_index.reshape(-1)].reshape(n, n, heads)
-        bias = bias.permute(2, 0, 1)
-        q, k, v = self.qkv(x).reshape(bnw, n, 3, heads, hd).permute(
-            2, 0, 3, 1, 4)
-
-        def logits(a):
-            a = a * hd ** -0.5 + wide(bias)
-            if mask is None:
-                return a
-            nw = mask.shape[0]
-            return (a.reshape(bnw // nw, nw, heads, n, n)
-                    + mask[None, :, None]).reshape(bnw, heads, n, n)
-
-        out = attention(q, k, v, logits).transpose(1, 2).reshape(bnw, n, c)
-        trace.count("swin/window_logit_bytes", bnw * heads * n * n * 4)
-        return self.proj(out)
+        qkv = self.qkv(x).reshape(bnw, n, 3, heads, c // heads)
+        return self.proj(wa.window_attention(qkv, bias.permute(2, 0, 1),
+                                             mask))
 
 
 class _Block(nn.Module):

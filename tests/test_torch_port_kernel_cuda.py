@@ -23,7 +23,7 @@ from endoscopy_tpu_torch.ops import randaugment_kernel as tk
 from endoscopy_tpu_torch.train.common import BaseTrainer
 from endoscopy_tpu_torch.utils import trace
 from endoscopy_tpu_torch.utils.meters import AverageMeter
-from torch_port_checks import path_o
+from torch_port_checks import path_l, path_o
 
 torch.set_num_threads(1)
 
@@ -45,8 +45,9 @@ def test_kernel_matches_plain_on_card():
     supervised step of each branch (no kernel) on the card against the
     CPU. Then the resize kernel against its plain version on odd shapes,
     1 and 224 images, the card's decode on batches with a broken file, the
-    trainers' deferred losses read while later work still runs, and host
-    rows staged to the card while it is busy."""
+    trainers' deferred losses read while later work still runs, host rows
+    staged to the card while it is busy, and Swin's window-attention
+    kernel against its plain path."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernel has no CPU mode")
     ext = tk.build()
@@ -63,6 +64,7 @@ def test_kernel_matches_plain_on_card():
     _broken_file_in_a_batch()
     _deferred_losses_wait_only_for_their_steps()
     _staged_rows_survive_reuse()
+    _window_attention_matches_plain()
 
 
 def _forced_case(side, mode, dtype, seed=0):
@@ -354,3 +356,52 @@ def _staged_rows_survive_reuse():
     assert (back.untyped_storage().data_ptr()
             == card.untyped_storage().data_ptr())
     assert trace.counter("views/staged") - before == 10
+
+
+def _window_attention_matches_plain():
+    """Each Swin-T stage's blocks at ``path_l.WA_IMAGES`` images (shifted
+    and unshifted; stage 4's one window): the output, d(qkv) and the bias
+    gradient against the plain path within ``path_l``'s limits; a strided
+    ``qkv`` view; the counter; the float32 input's plain path; the shapes
+    the kernel refuses."""
+    from endoscopy_tpu_torch.ops import window_attention as wa
+
+    for side, heads, _ in path_l.SWIN_T_STAGES:
+        for shifted in (False, True)[:1 + (side > path_l.WINDOW)]:
+            case = path_l.window_attention_case(side, heads, shifted,
+                                                path_l.WA_IMAGES, side)
+            before = trace.counter("window_attention/fused")
+            err = path_l.window_attention_errors(*case)
+            assert trace.counter("window_attention/fused") == before + 2
+            assert not path_l.window_attention_faults(err), (side, shifted,
+                                                             err)
+
+    # qkv read through its strides: the windows of a larger batch, rows
+    # apart; the kernel is deterministic, so the same bits
+    qkv, bias, mask, dout = path_l.window_attention_case(28, 6, True, 4, 1)
+    big = torch.zeros((2 * qkv.shape[0],) + qkv.shape[1:], dtype=qkv.dtype,
+                      device=qkv.device)
+    big[1::2] = qkv
+    strided = big[1::2]
+    assert not strided.is_contiguous()
+    got = path_l.window_attention_grads(wa.window_attention, strided, bias,
+                                        mask, dout)
+    want = path_l.window_attention_grads(wa.window_attention, qkv, bias,
+                                         mask, dout)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with torch.no_grad():  # no autograd record: the same output
+        assert torch.equal(wa.window_attention(qkv, bias, mask), want[0])
+
+    before = trace.counter("window_attention/fused")
+    out32 = wa.window_attention(qkv.float(), bias, mask)
+    assert out32.dtype == torch.float32
+    assert trace.counter("window_attention/fused") == before
+    for bad, args in (
+            ("over the kernel's tile",
+             (torch.zeros(4, 81, 3, 3, 32), torch.zeros(3, 81, 81), None)),
+            ("head width", (torch.zeros(4, 49, 3, 3, 16), bias.cpu(), None))):
+        args = tuple(None if a is None else a.cuda() for a in args)
+        with pytest.raises(ValueError, match=bad):
+            wa.window_attention(args[0].bfloat16(), *args[1:])
+

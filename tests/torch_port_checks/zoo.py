@@ -75,6 +75,7 @@ from endoscopy_tpu_torch.models.resnet import ResNet
 from endoscopy_tpu_torch.models.swin_mlp import SwinMLP
 from endoscopy_tpu_torch.models.vit_lsa import ViTLSA
 from endoscopy_tpu_torch.train.supervised import SupLearning
+from endoscopy_tpu_torch.utils import trace
 from torch_port_checks import path_k, path_l
 from torch_port_checks.train import OVERRIDES, ROOT, _close
 
@@ -297,6 +298,115 @@ def check_swin_mask_and_windows_match_jax_exactly():
         np.testing.assert_array_equal(
             torch.roll(back, (shift, shift), (1, 2)).numpy(), y)
     assert swin.stage_window(7, 7, 7, 3) == (7, 0)
+
+
+def _old_window_attention(m, x, mask):
+    """``WindowAttention._forward`` as the port computed it before the
+    window-attention op: the gather, the permuted ``q, k, v`` and
+    ``layers.attention`` with the scale, bias and mask in its logits."""
+    from endoscopy_tpu_torch.models.layers import attention, wide
+
+    bnw, n, c = x.shape
+    heads = m.num_heads
+    hd = c // heads
+    bias = m.relative_position_bias_table[
+        m.relative_position_index.reshape(-1)].reshape(n, n, heads)
+    bias = bias.permute(2, 0, 1)
+    q, k, v = m.qkv(x).reshape(bnw, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+
+    def logits(a):
+        a = a * hd ** -0.5 + wide(bias)
+        if mask is None:
+            return a
+        nw = mask.shape[0]
+        return (a.reshape(bnw // nw, nw, heads, n, n)
+                + mask[None, :, None]).reshape(bnw, heads, n, n)
+
+    out = attention(q, k, v, logits).transpose(1, 2).reshape(bnw, n, c)
+    return m.proj(out)
+
+
+def check_window_attention_plain_is_the_old_math_bit_for_bit():
+    """``ops/window_attention.py``'s plain path, through
+    ``WindowAttention``, gives the old module's output and gradients bit
+    for bit, in float32 and float64, shifted (a 4-window mask) and not."""
+    for dtype in (torch.float32, torch.float64):
+        for shifted in (False, True):
+            torch.manual_seed(3)
+            m = swin.WindowAttention(16, 2, 4).to(dtype)
+            with torch.no_grad():
+                m.relative_position_bias_table.normal_(0, 0.5)
+            mask = (torch.from_numpy(swin.shift_attn_mask(8, 8, 4, 2))
+                    .to(dtype) if shifted else None)
+            x = torch.randn(3 * 4, 16, 16, dtype=dtype)
+            dy = torch.randn(3 * 4, 16, 16, dtype=dtype)
+            outs = []
+            for fn in (m, functools.partial(_old_window_attention, m)):
+                m.zero_grad()
+                xi = x.clone().requires_grad_(True)
+                y = fn(xi, mask)
+                y.backward(dy)
+                outs.append([y.detach(), xi.grad] + [
+                    p.grad.clone() for p in m.parameters()])
+            for got, want in zip(*outs):
+                assert got.dtype == dtype
+                assert torch.equal(got, want), (dtype, shifted)
+
+
+def check_swin_on_the_cpu_takes_the_plain_path():
+    """A tiny Swin's forward on the CPU: no pass through the kernel
+    (``window_attention/fused`` unmoved), the logits' bytes counted, the
+    output the old module's bit for bit; and the dispatch rule and the
+    kernel's shape checks, which need no card."""
+    from endoscopy_tpu_torch.ops import window_attention as wa
+
+    torch.manual_seed(4)
+    model = swin.SwinTransformer(32, patch_size=4, embed_dim=16,
+                                 depths=(2, 2), num_heads=(2, 4),
+                                 window_size=4)
+    x = torch.randn(2, 3, 32, 32)
+    before = trace.totals()
+    with torch.no_grad():
+        got = model(x)
+    moved = trace.since(before)["counters"]
+    assert "window_attention/fused" not in moved, moved
+    assert moved["swin/window_logit_bytes"] > 0
+    old = swin.WindowAttention._forward
+    try:
+        swin.WindowAttention._forward = _old_window_attention
+        with torch.no_grad():
+            want = model(x)
+    finally:
+        swin.WindowAttention._forward = old
+    assert torch.equal(got, want)
+
+    qkv = torch.zeros(4, 49, 3, 3, 32, dtype=torch.bfloat16)
+    assert not wa.takes_kernel(qkv) and not wa.takes_kernel(qkv.float())
+    bias = torch.zeros(3, 49, 49)
+    wa.check(qkv, bias, torch.zeros(4, 49, 49))
+    for bad, args in (
+            ("over the kernel's tile",
+             (torch.zeros(4, 81, 3, 3, 32), torch.zeros(3, 81, 81), None)),
+            ("head width", (torch.zeros(4, 49, 3, 3, 16), bias, None)),
+            ("mask must be", (qkv, bias, torch.zeros(3, 49, 49))),
+            ("16 bytes", (torch.zeros(4, 49, 3, 3, 36)[..., :32], bias,
+                          None)),
+            ("16 bytes", (torch.zeros(4 * 49 * 9 * 32 + 1)[1:].view(
+                4, 49, 3, 3, 32), bias, None))):
+        try:
+            wa.check(*args)
+        except ValueError as exc:
+            assert bad in str(exc), (bad, exc)
+        else:
+            raise AssertionError(f"check() passed a case it must refuse: {bad}")
+    assert wa.per_block(480 * 64, 64) == wa.MAX_PER_BLOCK
+    assert wa.per_block(3 * 64, 64) == 3
+    assert wa.per_block(1, 1) == 1
+    # the bytes the kernel needs at Swin-T's shapes: 4.61 ms at 3.35 TB/s
+    total = sum(wa.bytes_moved(480 * (side // 7) ** 2, 49, heads) * blocks
+                for side, heads, blocks in ((56, 3, 2), (28, 6, 2),
+                                            (14, 12, 6), (7, 24, 2)))
+    assert total == 480 * 912 * (11 * 49 * 32 * 2 + 2 * 49 * 8)
 
 
 def _reference_key(family: str, key: str) -> str:
